@@ -1,14 +1,17 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-  csrc/neighbor_min.cu — CUDA C++ for sm_90a (masked neighbour-min, label
-                         agreement over ELL adjacencies)
-  _build.py            — nvcc build at first use, loaded with ctypes
-  neighbor_min.py      — the kernel wrappers (device checks, launch counts)
-                         and the graph-to-ELL helpers
-  ref.py               — the plain versions the wrappers use on the CPU
+  csrc/neighbor_min.cu    — CUDA C++ for sm_90a (masked neighbour-min, label
+                            agreement over ELL adjacencies; B1–B3)
+  csrc/flash_attention.cu — CUDA C++ for sm_90a (attention forward; B4)
+  _build.py               — nvcc build at first use, loaded with ctypes
+  neighbor_min.py         — B1–B3 wrappers (device checks, launch counts)
+                            and the graph-to-ELL helpers
+  flash_attention.py      — the B4 wrapper
+  ref.py                  — the plain versions the wrappers use on the CPU
 
 The reference's ``kernels/ops.py`` switches Pallas interpret mode; the
-port has no such switch, so the core calls ``neighbor_min`` directly.
+port has no such switch, so the core calls ``neighbor_min`` and the
+models call ``flash_attention`` directly.
 
 Nothing here imports a compiler or touches a GPU at import time.
 """

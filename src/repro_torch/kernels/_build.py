@@ -91,6 +91,18 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def device_and_stream(t):
+    """A CUDA tensor's device index and PyTorch's current stream on it: the
+    two values every C entry takes, because each library links its own CUDA
+    runtime, whose current device is not PyTorch's."""
+    import torch
+
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
@@ -102,4 +114,4 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["build", "load", "sources", "library_path", "nvcc",
-           "BUILD_DIR"]
+           "device_and_stream", "BUILD_DIR"]

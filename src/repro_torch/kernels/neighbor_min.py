@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from . import ref as _ref
+from ._build import device_and_stream
 
 INF = _ref.INF_I32
 
@@ -101,19 +102,11 @@ def _raise_on(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed ({code}: {msg})")
 
 
-def _device_and_stream(t: torch.Tensor):
-    """The tensor's device index and PyTorch's current stream on it."""
-    index = t.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    return index, torch.cuda.current_stream(index).cuda_stream
-
-
 def _launch_neighbor_min(ell, ranks_p, active_p, B, R, W, name):
     out = torch.empty((B, R), dtype=torch.int32, device=ell.device)
     code = _lib().nm_neighbor_min(
         ell.data_ptr(), ranks_p.data_ptr(), active_p.data_ptr(),
-        out.data_ptr(), B, R, W, R + 1, *_device_and_stream(ell))
+        out.data_ptr(), B, R, W, R + 1, *device_and_stream(ell))
     _raise_on(code, name)
     launches[name] += 1
     return out
@@ -164,7 +157,7 @@ def label_agree_ell_batch(ell: torch.Tensor,
     out = torch.empty((B, R), dtype=torch.int32, device=ell.device)
     code = _lib().nm_label_agree(ell.data_ptr(), labels_p.data_ptr(),
                                  out.data_ptr(), B, R, W, R + 1,
-                                 *_device_and_stream(ell))
+                                 *device_and_stream(ell))
     _raise_on(code, "label_agree_ell_batch")
     launches["label_agree_ell_batch"] += 1
     return out
