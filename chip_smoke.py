@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--out smoke.json]
+    python3 chip_smoke.py [--seed 0] [--out smoke.json] [--baseline OLD.cu]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -12,8 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
    ``nvcc`` each, started together;
 3. kernel vs plain: B1 ``neighbor_min_ell_batch``, B2
    ``label_agree_ell_batch`` and B3 ``neighbor_min_ell`` on random inputs
-   made with numpy from ``--seed``, held against their plain PyTorch
-   versions with ``torch.equal`` (integer outputs: tolerance 0); B4
+   made with numpy from ``--seed``, at shapes that take every route of
+   their launch plan, held against their plain PyTorch versions with
+   ``torch.equal`` (integer outputs: tolerance 0); with ``--baseline``,
+   also timed against an earlier kernel source on the same inputs; B4
    ``flash_attention`` at the reference's kernel-test shapes, at
    smollm-135m prefill shapes (S = 24, 512, 2048; f32 and bf16) and at a
    batch of eight 2048-token prefills, within 2e-5 (f32) / 2e-2 (bf16) of
@@ -28,7 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
    just after; B1 and B2 must have launched. Labels are checked against
    sequential PIVOT on the eligible-induced subgraph, every cost against
    the host count, and 32 graphs against per-graph ``correlation_cluster``
-   on the card, which must launch B3;
+   on the card, which must launch B3. B1–B3 are then timed at the largest
+   shapes the path gave them, B1 and B2 also on the real arrays of the
+   largest bucket, and a breakdown gives host time per layer, the card's
+   busy share and B1's and B2's device time in a traced pass;
 5. LM serving path: smollm-135m at full width, f32 weights from a
    ``torch.Generator`` seeded with ``--seed``, serving 8 requests (4 with
    4–23-token prompts, 4 with 512–2000, up to 32 new tokens each) through
@@ -61,10 +66,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM peak outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels.measure import (  # noqa: E402
+    NON_TENSOR_OPS_PER_S, Baseline, bound_ms, bytes_and_ops, card_line,
+    device_events, device_ms, fmt_ms, kernel_inputs)
+
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-INF = 2**31 - 1
 SOURCE = "src/repro_torch/kernels/csrc/neighbor_min.cu"
 REPLACES = {
     "neighbor_min_ell_batch": "src/repro/kernels/neighbor_min.py:97",
@@ -97,14 +105,30 @@ B4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PREFILL_TOL = 1e-3
 DECODE_TOL = 5e-2
 SERVE_CACHE_LEN = 2048          # smollm-135m's published context
-KERNEL_SHAPES = [(64, 8, 4), (48, 1024, 64), (16, 4096, 4096), (8, 32768, 16)]
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+# B1–B3 shapes (B, R, W) of phase 3, covering every route of the launch
+# plan (``neighbor_min.launch_plan``); B3 runs on graph 0 of each, (R, W).
+KERNEL_SHAPES = [
+    (64, 8, 4),          # l2: under 2 MiB of ELL
+    (512, 64, 8),
+    (2048, 64, 8),       # staged: a block takes ~16 whole graphs
+    (64, 4096, 4),       # staged at the narrowest bucket widths
+    (64, 4096, 8),
+    (48, 1024, 64),
+    (64, 4097, 16),      # staged with R not a power of two
+    (24, 32768, 16),     # staged: the R = 2^15 bucket, 131 KB per block
+    (8, 32768, 16),
+    (16, 512, 256),      # staged, wide rows: a warp per row
+    (16, 4096, 4096),
+    (3, 999, 7),         # odd W: l2 route (int32 loads), B3 too
+    (1, 60000, 8),       # state above a block's 227 KB: l2 route
+]
+# Shapes of the same-run A/B against a baseline kernel source (--baseline):
+# the main path's largest bucket at its three narrow widths, the R = 2^15
+# bucket, the wide shape and B3's largest per-graph shape, (n, W) =
+# (32312, 18); B3 is also timed at the largest shape of this run's path.
+AB_SHAPES = [(768, 4096, 32), (768, 4096, 16), (768, 4096, 8), (8, 32768, 16),
+             (16, 4096, 4096), (1, 32312, 18)]
+B1_B2 = ("neighbor_min_ell_batch", "label_agree_ell_batch")
 
 
 def time_ms(fn, calls: int = 20, samples: int = 5) -> float:
@@ -126,88 +150,82 @@ def time_ms(fn, calls: int = 20, samples: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_events(fn):
-    """Run ``fn`` under the profiler; returns (name, device µs) per kernel
-    the card ran, or None when the profiler saw no device activity."""
+def profiled_passes(fns, key: str, calls: int = 20):
+    """Device ms per call of each function in ``fns``, each one launch of
+    its own kernel (names holding ``key``, a different name per function),
+    timed in one profiler session in the order A, B, …, …, B, A: the median
+    over the launches of each name, the names taken in the order they first
+    ran. None where the profiler did not tell the functions apart."""
     from torch.profiler import ProfilerActivity, profile
 
+    order = list(fns) + list(fns)[::-1]
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        fn()
+        for fn in order:
+            for _ in range(calls):
+                fn()
         torch.cuda.synchronize()
-    out = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return out or None
-
-
-def device_ms(fn, calls: int = 20):
-    """Mean device time of one call from the profiler (None if unseen)."""
-    def many():
-        for _ in range(calls):
-            fn()
-    events = device_events(many)
-    if events is None:
-        return None
-    return sum(us for _, us in events) / calls / 1e3
-
-
-def bound_ms(nbytes: int, ops: int, ops_per_s: float = NON_TENSOR_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def kernel_inputs(B, R, W, rng, dev):
-    """Bucket state with the pad contract; a quarter of the rows hold only
-    pads and, when B > 1, the last graph has no active vertex at all."""
-    ell = rng.integers(0, R + 1, (B, R, W), dtype=np.int32)
-    ell[:, ::4, :] = R
-    ranks = rng.integers(0, INF, (B, R + 1), dtype=np.int32)
-    ranks[:, R] = INF
-    active = rng.random((B, R + 1)) < 0.3
-    active[:, R] = False
-    if B > 1:
-        active[-1] = False
-    labels = rng.integers(0, 8, (B, R + 1), dtype=np.int32)
-    labels[:, R] = -1
-    return [torch.from_numpy(a).to(dev) for a in (ell, ranks, active, labels)]
-
-
-def bytes_and_ops(name, B, R, W):
-    """DRAM bytes (each input read once, output written once) and ops."""
-    slots, state = B * R * W, B * (R + 1)
-    if name == "label_agree_ell_batch":
-        return 4 * slots + 4 * state + 4 * B * R, 3 * slots
-    return 4 * slots + 5 * state + 4 * B * R, 3 * slots
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and key in e.name), key=lambda e: e.time_range.start)
+    names: list = []
+    for e in events:
+        if e.name not in names:
+            names.append(e.name)
+    if len(names) != len(fns):
+        return [None] * len(fns)
+    return [float(np.median([e.time_range.elapsed_us() for e in events
+                             if e.name == name])) / 1e3 for name in names]
 
 
 class KernelBench:
-    """Calls each wrapper against its plain version and times both."""
+    """Calls each wrapper against its plain version and times both; with a
+    :class:`Baseline`, also times the baseline kernel on the same inputs."""
 
-    def __init__(self, nm, ref, dev):
+    def __init__(self, nm, ref, dev, baseline=None):
         self.nm, self.ref, self.dev = nm, ref, dev
+        self.baseline = baseline
         self.max_err = {name: 0 for name in REPLACES}
 
-    def pairs(self, ell, ranks, active, labels):
-        nm, ref = self.nm, self.ref
-        e0, r0, a0 = ell[0], ranks[0], active[0]
-        return {
+    def pairs(self, ell, ranks, active, labels, names=tuple(REPLACES)):
+        """(kernel, plain, baseline kernel or None) per wrapper; B3 gets
+        graph 0."""
+        nm, ref, base = self.nm, self.ref, self.baseline
+        every = {
             "neighbor_min_ell_batch": (
                 lambda: nm.neighbor_min_ell_batch(ell, ranks, active),
-                lambda: ref.neighbor_min_ref(ell, ranks, active)),
+                lambda: ref.neighbor_min_ref(ell, ranks, active),
+                base and (lambda: base.neighbor_min(ell, ranks, active))),
             "label_agree_ell_batch": (
                 lambda: nm.label_agree_ell_batch(ell, labels),
-                lambda: ref.label_agree_ref(ell, labels)),
+                lambda: ref.label_agree_ref(ell, labels),
+                base and (lambda: base.label_agree(ell, labels))),
             "neighbor_min_ell": (
-                lambda: nm.neighbor_min_ell(e0, r0, a0),
-                lambda: ref.neighbor_min_ref(e0, r0, a0)),
+                lambda: nm.neighbor_min_ell(ell[0], ranks[0], active[0]),
+                lambda: ref.neighbor_min_ref(ell[0], ranks[0], active[0]),
+                base and (lambda: base.neighbor_min(ell[0], ranks[0],
+                                                    active[0]))),
         }
+        return {name: every[name] for name in names}
 
-    def run(self, B, R, W, rng, timed=True):
+    def run(self, B, R, W, rng, timed=True, ab=False):
         """Check (and time) every kernel at one (B, R, W); B3 gets graph 0."""
         inputs = kernel_inputs(B, R, W, rng, self.dev)
+        rows = self.check(self.pairs(*inputs), (B, R, W), timed, ab)
+        del inputs
+        torch.cuda.empty_cache()
+        return rows
+
+    def check(self, pairs, shape, timed=True, ab=False):
+        """Each kernel ``torch.equal`` to its plain version; with ``timed``
+        its device and per-call times, the plain version's and the bound;
+        with ``ab`` and a baseline, kernel and baseline kernel in one
+        profiler session (A B B A)."""
+        B, R, W = shape
         rows = {}
-        for name, (kernel, plain) in self.pairs(*inputs).items():
+        for name, (kernel, plain, old) in pairs.items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max()) \
@@ -216,11 +234,12 @@ class KernelBench:
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} differs from its plain version "
                                      f"at (B, R, W) = {(B, R, W)}")
-            shape = (1, R, W) if name == "neighbor_min_ell" else (B, R, W)
-            nbytes, ops = bytes_and_ops(name, *shape)
+            kshape = (1, R, W) if name == "neighbor_min_ell" else (B, R, W)
+            nbytes, ops = bytes_and_ops(name, *kshape)
             bms, by = bound_ms(nbytes, ops)
-            row = {"shape": list(shape), "equal": True, "bound_ms": bms,
-                   "bound_by": by}
+            row = {"shape": list(kshape), "equal": True, "bound_ms": bms,
+                   "bound_by": by,
+                   "variant": self.nm.launch_plan(*kshape, R + 1).route}
             if timed:
                 # ms: the card's time per call (profiler); call_ms: per call
                 # of a back-to-back run, which includes the host's issue time
@@ -231,9 +250,14 @@ class KernelBench:
                 # (null in the kernels line): call_ms is no card time.
                 row["ms"] = device_ms(kernel)
                 row["plain_ms"] = device_ms(plain, calls=3)
+            if ab and old is not None:
+                if not torch.equal(old(), want):
+                    raise AssertionError(f"the baseline {name} differs from "
+                                         f"the plain version at {shape}")
+                key = "label_agree" if "agree" in name else "neighbor_min"
+                row["ab_ms"], row["baseline_ms"] = profiled_passes(
+                    [kernel, old], key)
             rows[name] = row
-        del inputs
-        torch.cuda.empty_cache()
         return rows
 
 
@@ -310,16 +334,17 @@ def print_b4_row(row):
           f"{fmt_ms(row['call_ms'])}")
 
 
-def fmt_ms(x) -> str:
-    return "not measured" if x is None else f"{x:.4f}"
-
-
 def print_row(name, row):
-    print(f"  {name:24s} {str(tuple(row['shape'])):20s} equal; device ms: "
-          f"kernel {fmt_ms(row['ms'])}, plain {fmt_ms(row['plain_ms'])}, "
-          f"bound {row['bound_ms']:.4f} ({row['bound_by']}); per call back "
-          f"to back: kernel {fmt_ms(row['call_ms'])}, plain "
-          f"{fmt_ms(row['plain_call_ms'])}")
+    line = (f"  {name:24s} {str(tuple(row['shape'])):20s} {row['variant']:6s}"
+            f" equal; device ms: kernel {fmt_ms(row.get('ms'))}, plain "
+            f"{fmt_ms(row.get('plain_ms'))}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}); per call back to back: kernel "
+            f"{fmt_ms(row.get('call_ms'))}, plain "
+            f"{fmt_ms(row.get('plain_call_ms'))}")
+    if "baseline_ms" in row:
+        line += (f"; A/B (ABBA) kernel {fmt_ms(row['ab_ms'])} vs baseline "
+                 f"{fmt_ms(row['baseline_ms'])}")
+    print(line)
 
 
 def main_path_workload(rng, build_graph, random_arboric, dev):
@@ -442,10 +467,56 @@ LAYERS = ("correlation_cluster_batch", "plan_graph", "pack_bucket",
           "_pivot_rounds_body", "_disagree_cost_pass", "result_for_plan")
 
 
-def breakdown(graphs, lams, card, n_trace=256):
+class LargestCall:
+    """For one pass, wraps the B1 and B2 wrappers and keeps a copy of the
+    inputs of the first call on the largest ELL each was given: the real
+    arrays of the largest bucket. The kernels still launch and count."""
+
+    def __init__(self, nm):
+        self.nm, self.args = nm, {}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.nm, name) for name in B1_B2}
+        for name, fn in self.saved.items():
+            setattr(self.nm, name, self._keep(name, fn))
+        return self
+
+    def _keep(self, name, fn):
+        def wrapped(ell, *state):
+            kept = self.args.get(name)
+            if kept is None or ell.numel() > kept[0].numel():
+                self.args[name] = [t.clone() for t in (ell, *state)]
+            return fn(ell, *state)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.nm, name, fn)
+
+
+def real_bucket_rows(bench, args):
+    """B1 and B2 checked and timed on the real arrays of the largest bucket
+    a pass packed (B1 on its first MIS round's active set)."""
+    ell, ranks, active = args["neighbor_min_ell_batch"]
+    ell2, labels = args["label_agree_ell_batch"]
+    rows = bench.check(bench.pairs(ell, ranks, active, None,
+                                   names=B1_B2[:1]),
+                       tuple(ell.shape), ab=True)
+    rows.update(bench.check(bench.pairs(ell2, None, None, labels,
+                                        names=B1_B2[1:]),
+                            tuple(ell2.shape), ab=True))
+    for name, e in zip(B1_B2, (ell, ell2)):
+        rows[name]["pad_share"] = float((e == e.shape[1]).float().mean())
+    rows[B1_B2[0]]["active_share"] = float(active[:, :-1].float().mean())
+    return rows
+
+
+def breakdown(graphs, lams, card, nm, n_trace=256):
     """Where a warm pass spends its time: host seconds per layer (cProfile
-    over the whole pass) and the card's busy share (profiler trace of a
-    pass over the first ``n_trace`` graphs)."""
+    over the whole pass), the card's busy share and B1's and B2's device
+    time (profiler trace of a pass over the first ``n_trace`` graphs).
+    The cProfile pass also keeps the largest bucket's B1/B2 inputs
+    (``result["largest"]``)."""
     import cProfile
     import pstats
 
@@ -462,7 +533,8 @@ def breakdown(graphs, lams, card, n_trace=256):
     prof = cProfile.Profile()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prof.runcall(run, graphs, lams)
+    with LargestCall(nm) as largest:
+        prof.runcall(run, graphs, lams)
     wall = time.perf_counter() - t0
     layers = {name: 0.0 for name in LAYERS}
     for (path, _, func), (_, _, _, cum, _) in pstats.Stats(prof).stats.items():
@@ -476,11 +548,18 @@ def breakdown(graphs, lams, card, n_trace=256):
     events = device_events(lambda: run(graphs[:n_trace], lams[:n_trace]))
     traced_wall = time.perf_counter() - t0
     result = {"profiled_wall_s": wall, "host_s": layers,
-              "traced_graphs": n_trace, "traced_wall_s": traced_wall}
+              "traced_graphs": n_trace, "traced_wall_s": traced_wall,
+              "largest": largest.args}
     if events is None:
         print("  device busy share: not measured (no device events)")
         return result
     busy = sum(us for _, us in events) / 1e6
+    # The ELL kernels' names: neighbor_min_{staged,l2}, label_agree_{...}.
+    ell_ms = {name: sum(us for ev, us in events if key in ev) / 1e3
+              for name, key in zip(B1_B2, ("neighbor_min", "label_agree"))}
+    print(f"  traced pass: B1 {ell_ms[B1_B2[0]]:.4f} ms, B2 "
+          f"{ell_ms[B1_B2[1]]:.4f} ms of device time  [{card}]")
+    result["ell_kernel_device_ms"] = ell_ms
     by_name: dict = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us / 1e6
@@ -765,12 +844,16 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=Path, default=None,
                         help="also write the full record as JSON here")
+    parser.add_argument("--baseline", type=Path, default=None,
+                        help="another csrc/neighbor_min.cu, built and timed "
+                        "beside B1-B3 on the same inputs; its C entries "
+                        "must take no launch plan or this checkout's (see "
+                        "measure.bind_baseline)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core.graph import build_graph, random_arboric
     from repro_torch.kernels import _build, flash_attention as fa
@@ -794,9 +877,12 @@ def main() -> int:
           f"{nvcc_version}, python {sys.version.split()[0]}")
     record["card"] = card
 
-    # 2. Build.
+    # 2. Build, the baseline source (if any) alongside.
     t0 = time.perf_counter()
+    baseline = Baseline(args.baseline) if args.baseline else None
     logs = _build.build(_build.sources())
+    if baseline is not None:
+        baseline.load()
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.2f} s for {_build.sources()}")
     for name, text in logs.items():
@@ -806,13 +892,22 @@ def main() -> int:
 
     # 3. Kernel vs plain, on the card.
     rng = np.random.default_rng(args.seed)
-    bench = KernelBench(nm, ref, dev)
+    bench = KernelBench(nm, ref, dev, baseline)
     record["kernel_shapes"] = []
     for shape in KERNEL_SHAPES:
         rows = bench.run(*shape, rng)
         record["kernel_shapes"].append(rows)
         for name, row in rows.items():
             print_row(name, row)
+    if baseline is not None:
+        print(f"A/B against {args.baseline}, same inputs, one profiler "
+              f"session per kernel  [{card}]")
+        record["ab_shapes"] = []
+        for shape in AB_SHAPES:
+            rows = bench.run(*shape, rng, ab=True)
+            record["ab_shapes"].append(rows)
+            for name, row in rows.items():
+                print_row(name, row)
     abench = AttentionBench(fa, ref, dev)
     record["b4_shapes"] = []
     for shape in B4_SHAPES:
@@ -822,10 +917,12 @@ def main() -> int:
 
     # 4. Clustering main path.
     t0 = time.perf_counter()
-    graphs, lams = main_path_workload(rng, build_graph, random_arboric, dev)
+    # Its own generator, so phase 3's draws do not change the workload.
+    wrng = np.random.default_rng([args.seed, 4])
+    graphs, lams = main_path_workload(wrng, build_graph, random_arboric, dev)
     print(f"main path: {len(graphs)} graphs built on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    mp = main_path(graphs, lams, rng, dev, card)
+    mp = main_path(graphs, lams, wrng, dev, card)
     record["main_path"] = mp["record"]
     stats, per_graph = mp["stats"], mp["per_graph"]
     batch_launches = mp["record"]["launches"]
@@ -834,8 +931,8 @@ def main() -> int:
     # Each kernel timed at the largest shape the main path gave it.
     R, W, B = max(stats.bucket_shapes, key=lambda s: s[0] * s[1] * s[2])
     big = max(per_graph, key=lambda g: g.n)
-    main_rows = bench.run(B, R, W, rng)
-    b3 = bench.run(1, big.n, max(1, big.max_degree()), rng)
+    main_rows = bench.run(B, R, W, rng, ab=True)
+    b3 = bench.run(1, big.n, max(1, big.max_degree()), rng, ab=True)
     main_rows["neighbor_min_ell"] = b3["neighbor_min_ell"]
     print("kernels at the largest shapes the main path gave them:")
     for name, row in main_rows.items():
@@ -850,8 +947,19 @@ def main() -> int:
             "max_abs_err": bench.max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "shape": row["shape"], "call_ms": row["call_ms"]})
-    record["breakdown"] = breakdown(graphs, lams, card)
+            "shape": row["shape"], "call_ms": row["call_ms"],
+            "variant": row["variant"],
+            **{k: row[k] for k in ("ab_ms", "baseline_ms") if k in row}})
+    record["breakdown"] = breakdown(graphs, lams, card, nm)
+    real = real_bucket_rows(bench, record["breakdown"].pop("largest"))
+    print("B1 and B2 on the real arrays of the largest bucket the pass "
+          "packed:")
+    for name, row in real.items():
+        print_row(name, row)
+        print(f"    pad share of the ELL {row['pad_share']:.4f}"
+              + (f", active share {row['active_share']:.4f}"
+                 if "active_share" in row else ""))
+    record["real_bucket"] = real
     del graphs, per_graph, mp, stats
     torch.cuda.empty_cache()
 
@@ -863,13 +971,14 @@ def main() -> int:
     n_weights = sum(p.numel() for p in model.parameters())
     print(f"serving path: {cfg.name} ({n_weights} weights, f32) built in "
           f"{time.perf_counter() - t0:.2f} s")
-    reqs = serving_requests(rng, cfg.vocab_size, SERVE_CACHE_LEN)
+    srng = np.random.default_rng([args.seed, 5])   # as wrng, for phase 5
+    reqs = serving_requests(srng, cfg.vocab_size, SERVE_CACHE_LEN)
     serve_rec = serving_path(model, reqs, SERVE_CACHE_LEN, card)
     longest = max(reqs, key=lambda r: len(r.prompt))
     serve_rec["cpu_check"] = check_against_cpu(model, [reqs[0], longest],
                                                SERVE_CACHE_LEN)
     serve_rec["breakdown"] = lm_breakdown(model, len(longest.prompt),
-                                          SERVE_CACHE_LEN, rng, card)
+                                          SERVE_CACHE_LEN, srng, card)
     serve_rec["entry_point"] = entry_point_check(card)
     record["serving_path"] = serve_rec
 
@@ -886,7 +995,9 @@ def main() -> int:
         "max_abs_err": abench.max_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "shape": row["shape"], "call_ms": row["call_ms"]})
+        "shape": row["shape"], "call_ms": row["call_ms"],
+        # The template instance the path runs: element type, head dim.
+        "variant": f"fa_forward<float32, {cfg.head_dim}>"})
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

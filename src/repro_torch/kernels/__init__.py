@@ -8,6 +8,7 @@
                             and the graph-to-ELL helpers
   flash_attention.py      — the B4 wrapper
   ref.py                  — the plain versions the wrappers use on the CPU
+  measure.py              — timing, bounds and the A/B baseline on the card
 
 The reference's ``kernels/ops.py`` switches Pallas interpret mode; the
 port has no such switch, so the core calls ``neighbor_min`` and the

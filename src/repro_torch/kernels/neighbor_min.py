@@ -17,15 +17,20 @@ port of the Pallas TPU kernels in ``repro/kernels/neighbor_min.py``:
 Contract (the reference's pad layout): ``ell`` is int32 with pad id ``R``;
 the state rows have width ``S = R + 1`` and slot ``R`` is the pad slot
 (rank ``INT32_MAX``, ``active`` False, label ``-1``). ``active`` is bool.
+On the card every tensor is contiguous, and where the plan takes the
+staged route ``ell`` starts 16-byte aligned (the state may start anywhere,
+a row slice ``state[b0:b1]`` included); a call that breaks this raises.
 
 The tensor's device alone picks the implementation: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version in
-:mod:`.ref`. There is no fallback from one to the other.
+:mod:`.ref`. There is no fallback from one to the other. On the card,
+:func:`launch_plan` picks the kernel's route from the shape alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -34,6 +39,96 @@ from . import ref as _ref
 from ._build import device_and_stream
 
 INF = _ref.INF_I32
+
+THREADS = 256               # threads per block of the l2 route
+STAGED_THREADS = 1024       # a staged block: one on every SM
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+SMEM_BYTES_MAX = 232_448    # dynamic shared memory a block may use (sm_90)
+# Measured on an H100 (PERF.md): below about 2 MiB of ELL a launch
+# is bound by its latency, and the l2 route's is shorter; and a staged
+# launch that reads more than two state words per ELL word (a few long
+# graphs over many blocks, as in the per-graph B3 path) loses to l2.
+MIN_STAGED_BYTES = 2 << 20
+STAGE_RATIO = 2.0
+ROUTES = {"l2": 0, "staged": 1}     # the C entry's route codes
+# The C entries' argument list, as the library's nm_abi_version() reports
+# it: 2 is (ell, state..., out, B, R, W, S, route, rows_per_block, threads,
+# smem_bytes, device, stream). The source before the launch plan exports
+# no version and takes no plan.
+ABI_VERSION = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch covers the ``B·R`` global rows ``b·R + r``: block
+    ``i`` of ``blocks`` owns rows ``[i·rows_per_block, (i+1)·rows_per_block)``
+    and runs ``threads`` threads; a staged block holds the state of up to
+    ``smem_bytes / (4·S)`` graphs at a time in shared memory."""
+
+    route: str
+    rows_per_block: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+    def args(self):
+        """The C entries' (route, rows_per_block, threads, smem_bytes)."""
+        return (ROUTES[self.route], self.rows_per_block, self.threads,
+                self.smem_bytes)
+
+
+def _lanes_per_row(words: int) -> int:
+    """Lanes that share a row of ``words`` loads: pow2, at most a warp."""
+    return min(32, 1 << max(0, words - 1).bit_length())
+
+
+def l2_plan(B: int, R: int, W: int) -> LaunchPlan:
+    """The l2 route: blocks of ``THREADS`` threads, a row to each group of
+    ``pow2(W)`` lanes (up to a warp), no shared memory."""
+    rows = THREADS // _lanes_per_row(W)
+    return LaunchPlan("l2", rows, THREADS, 0, -(-(B * R) // rows))
+
+
+def staged_plan(B: int, R: int, W: int, S: int,
+                block_rows: Optional[int] = None) -> Optional[LaunchPlan]:
+    """The staged route's plan, or None where it cannot run: rows that are
+    not 16 bytes long (``W % 4``) or one graph's state above a block's
+    shared memory.
+
+    By default one block of 1,024 threads runs on every SM, the rows split
+    evenly between them, so no block waits on a second wave;
+    ``block_rows``, the one tunable, caps the rows per block (more, shorter
+    blocks, in several waves). A block walks its rows a segment at a time,
+    staging the state of as many of the segment's graphs as shared memory
+    holds: the graphs its run touches, up to 227 KB.
+    """
+    if W % 4 or S * 4 > SMEM_BYTES_MAX:
+        return None
+    rows = -(-(B * R) // SMS)
+    if block_rows is not None:
+        rows = min(rows, block_rows)
+    graphs = min(B, (rows - 1) // R + 2, SMEM_BYTES_MAX // (S * 4))
+    return LaunchPlan("staged", rows, STAGED_THREADS, graphs * S * 4,
+                      -(-(B * R) // rows))
+
+
+def launch_plan(B: int, R: int, W: int, S: int) -> LaunchPlan:
+    """The plan of one B1, B2 or B3 launch: a function of the shape alone.
+
+    The one-wave :func:`staged_plan` where it can run, except for launches
+    under ``MIN_STAGED_BYTES`` of ELL and launches that would stage more
+    than ``STAGE_RATIO`` state words per ELL word; everything else takes
+    :func:`l2_plan`: int32 loads, state gathered through L2.
+    """
+    staged = staged_plan(B, R, W, S)
+    total = B * R
+    if (staged is None or total * W * 4 < MIN_STAGED_BYTES
+            # Each block stages the graph its run starts in and every graph
+            # it enters after that.
+            or (staged.blocks + B - 1) * S > STAGE_RATIO * total * W):
+        return l2_plan(B, R, W)
+    return staged
+
 
 # Launches per kernel: each wrapper adds one where it launches its kernel
 # and nowhere else. Read and reset by callers that need to show the main
@@ -61,12 +156,19 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("neighbor_min")
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.nm_neighbor_min.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
-                                        i32, vp]
+                                        i32, i32, i32, i32, i32, vp]
         lib.nm_neighbor_min.restype = i32
-        lib.nm_label_agree.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, vp]
+        lib.nm_label_agree.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32,
+                                       i32, i32, i32, i32, vp]
         lib.nm_label_agree.restype = i32
         lib.nm_error_string.argtypes = [i32]
         lib.nm_error_string.restype = ctypes.c_char_p
+        lib.nm_abi_version.argtypes = []
+        lib.nm_abi_version.restype = i32
+        if lib.nm_abi_version() != ABI_VERSION:
+            raise RuntimeError(f"libneighbor_min reports ABI "
+                               f"{lib.nm_abi_version()}, this wrapper "
+                               f"binds {ABI_VERSION}: rebuild it")
         _LIB = lib
     return _LIB
 
@@ -102,11 +204,21 @@ def _raise_on(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed ({code}: {msg})")
 
 
+def _plan_args(name: str, B: int, R: int, W: int, ell: torch.Tensor):
+    """The C entry's (route, rows_per_block, threads, smem_bytes)."""
+    plan = launch_plan(B, R, W, R + 1)
+    if plan.route == "staged" and ell.data_ptr() % 16:
+        raise ValueError(f"{name}: the staged kernel reads ell 16 bytes at a "
+                         "time: ell starts at an unaligned offset")
+    return plan.args()
+
+
 def _launch_neighbor_min(ell, ranks_p, active_p, B, R, W, name):
+    plan = _plan_args(name, B, R, W, ell)
     out = torch.empty((B, R), dtype=torch.int32, device=ell.device)
     code = _lib().nm_neighbor_min(
         ell.data_ptr(), ranks_p.data_ptr(), active_p.data_ptr(),
-        out.data_ptr(), B, R, W, R + 1, *device_and_stream(ell))
+        out.data_ptr(), B, R, W, R + 1, *plan, *device_and_stream(ell))
     _raise_on(code, name)
     launches[name] += 1
     return out
@@ -154,9 +266,10 @@ def label_agree_ell_batch(ell: torch.Tensor,
                      labels_p=(labels_p, torch.int32))
     if ell.device.type == "cpu":
         return _ref.label_agree_ref(ell, labels_p)
+    plan = _plan_args("label_agree_ell_batch", B, R, W, ell)
     out = torch.empty((B, R), dtype=torch.int32, device=ell.device)
     code = _lib().nm_label_agree(ell.data_ptr(), labels_p.data_ptr(),
-                                 out.data_ptr(), B, R, W, R + 1,
+                                 out.data_ptr(), B, R, W, R + 1, *plan,
                                  *device_and_stream(ell))
     _raise_on(code, "label_agree_ell_batch")
     launches["label_agree_ell_batch"] += 1
@@ -193,4 +306,5 @@ def ell_from_graph(g) -> torch.Tensor:
 
 __all__ = ["neighbor_min_ell", "neighbor_min_ell_batch",
            "label_agree_ell_batch", "ell_from_graph", "pad_state", "INF",
-           "launches", "reset_launch_counts"]
+           "launches", "reset_launch_counts", "launch_plan", "l2_plan",
+           "staged_plan", "LaunchPlan", "ABI_VERSION"]

@@ -36,19 +36,33 @@ def _inputs(B, R, W, seed, dev):
     rng = np.random.default_rng(seed)
     ell = rng.integers(0, R + 1, (B, R, W)).astype(np.int32)
     ell[:, 0, :] = R                              # a row of pads only
+    flat = ell.reshape(-1)
+    flat[3::17] = -3                              # ids outside [0, S):
+    flat[5::19] = R + 5                           # they count for nothing
     ranks = rng.integers(0, INF, (B, R + 1)).astype(np.int32)
     ranks[:, R] = INF
     active = rng.random((B, R + 1)) < 0.3
     active[:, R] = False
     labels = rng.integers(0, 4, (B, R + 1)).astype(np.int32)
+    labels[:, ::7] = -1                           # rows labelled as the pad
     labels[:, R] = -1
     return [torch.from_numpy(a).to(dev) for a in (ell, ranks, active, labels)]
+
+
+# Every route of the launch plan (neighbor_min.launch_plan): staged with
+# many small graphs a block, at the narrowest widths, with R not a power of
+# two, at R = 2^15 (131 KB of shared memory) and with wide rows; l2 under
+# 2 MiB of ELL, for odd W (B3's raw widths) and for state above 227 KB.
+ROUTE_SHAPES = [(2048, 64, 8), (64, 4096, 4), (64, 4096, 8), (64, 4097, 16),
+                (24, 32768, 16), (8, 32768, 16), (16, 512, 256),
+                (512, 64, 8), (3, 999, 7), (1, 60000, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 8, 4), (3, 16, 4), (2, 33, 7),
                                    (4, 64, 32), (2, 128, 130),
-                                   (8, 4096, 16), (1, 64, 4096)])
+                                   (8, 4096, 16), (1, 64, 4096)]
+                         + ROUTE_SHAPES)
 def test_cuda_kernels_equal_plain(cuda, shape):
     e, r, a, lab = _inputs(*shape, seed=sum(shape), dev=cuda)
     nm.reset_launch_counts()
@@ -70,6 +84,41 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         nm.neighbor_min_ell_batch(e.transpose(1, 2), r, a)   # contiguity
     with pytest.raises(ValueError):
         nm.neighbor_min_ell_batch(e, r.cpu(), a)             # device
+    # The staged route reads 16 bytes at a time: an ELL that starts one
+    # element into its buffer is refused, not read unaligned.
+    e, r, a, _ = _inputs(2048, 64, 8, seed=0, dev=cuda)
+    assert nm.launch_plan(2048, 64, 8, 65).route == "staged"
+    buf = torch.empty(e.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = buf[1:].view(e.shape)
+    shifted.copy_(e)
+    with pytest.raises(ValueError):
+        nm.neighbor_min_ell_batch(shifted, r, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 64, 8), (64, 4097, 16),
+                                   (8, 32768, 16)])
+@pytest.mark.parametrize("skip", [(1, 1), (3, 3), (2, 0), (0, 1)])
+def test_cuda_staged_route_reads_sliced_state(cuda, shape, skip):
+    # The state as a row slice state[k:] of a larger (B + k, S) tensor
+    # starts k·S words in, off a 16-byte boundary for odd S; ranks and
+    # active sliced alike, or only one of them, so that they sit at
+    # different offsets from a boundary.
+    B, R, W = shape
+    assert nm.launch_plan(B, R, W, R + 1).route == "staged"
+    e, r, a, lab = _inputs(B, R, W, seed=B + skip[0], dev=cuda)
+
+    def sliced(t, k):
+        buf = torch.zeros((B + k, R + 1), dtype=t.dtype, device=cuda)
+        buf[k:] = t
+        return buf[k:]
+
+    rs, as_, labs = sliced(r, skip[0]), sliced(a, skip[1]), sliced(lab,
+                                                                   skip[0])
+    assert torch.equal(nm.neighbor_min_ell_batch(e, rs, as_),
+                       ref.neighbor_min_ref(e, r, a))
+    assert torch.equal(nm.label_agree_ell_batch(e, labs),
+                       ref.label_agree_ref(e, lab))
 
 
 @pytest.mark.cuda
