@@ -4,12 +4,14 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--out smoke.json] [--baseline OLD.cu]
+                          [--b4-baseline OLD_FA.cu]
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. provenance: card name and power limit, torch / CUDA / nvcc versions;
 2. build: every kernel source under ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` each, started together;
+   ``nvcc`` each, started together, and ptxas's registers, stack and spill
+   bytes for every kernel instance;
 3. kernel vs plain: B1 ``neighbor_min_ell_batch``, B2
    ``label_agree_ell_batch`` and B3 ``neighbor_min_ell`` on random inputs
    made with numpy from ``--seed``, at shapes that take every route of
@@ -22,7 +24,9 @@ Phases, in order; any failure raises and exits non-zero:
    its plain version. Each with kernel and plain device times (profiler),
    per-call times of back-to-back runs (CUDA events) and the bound; B4
    also with ``scaled_dot_product_attention``'s time as the library
-   yardstick;
+   yardstick and, with ``--b4-baseline``, at every shape with S >= 512 an
+   earlier ``flash_attention.cu`` held to the same plain version and timed
+   against the kernel, each in profiler sessions of its own (A B B A);
 4. clustering main path: ``correlation_cluster_batch(method='pivot',
    num_samples=3)`` on 2,048 random λ-arboric graphs (n log-uniform in
    [64, 4096]) plus 8 graphs in the R = 2¹⁵ bucket, a cold pass and a warm
@@ -45,7 +49,8 @@ Phases, in order; any failure raises and exits non-zero:
    5e-2, greedy tokens equal where the CPU's top-2 margin exceeds twice the
    tolerance); a profiler breakdown of one long prefill and 16 decode
    steps; (g) ``repro_torch.launch.serve.run`` on the card. B4 is then
-   timed at the longest prefill the path gave it;
+   timed at the longest prefill the path gave it (and against the
+   ``--b4-baseline`` source there);
 6. summary: the card line, a ``kernels`` JSON line (B1–B4), and last
    ``{"ok": true, "device": {...}}``.
 
@@ -69,10 +74,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels.measure import (  # noqa: E402
-    NON_TENSOR_OPS_PER_S, Baseline, bound_ms, bytes_and_ops, card_line,
-    device_events, device_ms, fmt_ms, kernel_inputs)
+    B4_SHAPES, B4_TOL, Baseline, FaBaseline, abba_ms, b4_bounds, bound_ms,
+    bytes_and_ops, card_line, device_events, device_ms, fmt_ms,
+    kernel_inputs)
 
-BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 SOURCE = "src/repro_torch/kernels/csrc/neighbor_min.cu"
 REPLACES = {
     "neighbor_min_ell_batch": "src/repro/kernels/neighbor_min.py:97",
@@ -81,23 +86,8 @@ REPLACES = {
 }
 B4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 B4_REPLACES = "src/repro/kernels/flash_attention.py:90"
-# B4 shapes (B, H, KH, Sq, Sk, D, causal, dtype): the reference's kernel
-# test (tests/test_kernels.py), smollm-135m prefills at three prompt
-# lengths, and a batch of eight long ones.
-B4_SHAPES = [
-    (1, 4, 4, 128, 128, 64, True, "float32"),
-    (2, 4, 2, 128, 128, 64, True, "float32"),
-    (1, 8, 1, 256, 256, 64, True, "bfloat16"),
-    (2, 4, 4, 128, 384, 64, True, "float32"),
-    (1, 2, 2, 192, 192, 32, False, "float32"),
-    (1, 9, 3, 130, 130, 64, True, "float32"),
-    (1, 4, 4, 64, 64, 128, True, "bfloat16"),
-] + [(1, 9, 3, s, s, 64, True, dt) for s in (24, 512, 2048)
-     for dt in ("float32", "bfloat16")] + [
-    (8, 9, 3, 2048, 2048, 64, True, dt) for dt in ("float32", "bfloat16")]
-# The reference's kernel tolerances: sums in another order, and a bf16
-# output may round one unit apart.
-B4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The same-run A/B against --b4-baseline covers the B4 shapes from here up.
+B4_AB_MIN_S = 512
 # LM serving against the same model on the CPU: prefill logits after 30
 # f32 layers summed in another order; decode logits after steps whose
 # keys and values went through bf16 caches, where one value rounded to the
@@ -261,28 +251,17 @@ class KernelBench:
         return rows
 
 
-def b4_bytes_and_ops(B, H, KH, Sq, Sk, D, causal, dtype):
-    """Bytes (q, k, v read once, o written once) and flops: 2 per
-    multiply-add of the score and value products, over the (row, key)
-    pairs the mask lets through."""
-    esize = 4 if dtype == "float32" else 2
-    nbytes = esize * D * (2 * B * H * Sq + 2 * B * KH * Sk)
-    if causal:   # row i sees keys 0 .. i + Sk - Sq
-        pairs = Sq * (Sk - Sq + 1) + Sq * (Sq - 1) // 2
-    else:
-        pairs = Sq * Sk
-    return nbytes, 4 * D * B * H * pairs
-
-
 class AttentionBench:
     """Calls B4 against its plain version, times both and the library
-    call (``scaled_dot_product_attention``) on the same inputs."""
+    call (``scaled_dot_product_attention``) on the same inputs; with a
+    :class:`FaBaseline`, also the baseline kernel where ``ab`` is set."""
 
-    def __init__(self, fa, ref, dev):
+    def __init__(self, fa, ref, dev, baseline=None):
         self.fa, self.ref, self.dev = fa, ref, dev
-        self.max_err = 0.0
+        self.baseline = baseline
+        self.max_err = {dtype: 0.0 for dtype in B4_TOL}
 
-    def run(self, shape, rng, timed=True):
+    def run(self, shape, rng, timed=True, ab=False):
         B, H, KH, Sq, Sk, D, causal, dtype = shape
         dt = getattr(torch, dtype)
         q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
@@ -302,16 +281,13 @@ class AttentionBench:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        self.max_err = max(self.max_err, err)
+        self.max_err[dtype] = max(self.max_err[dtype], err)
         if not err < B4_TOL[dtype]:
             raise AssertionError(f"flash_attention differs from its plain "
                                  f"version by {err} at {shape}")
-        nbytes, flops = b4_bytes_and_ops(*shape)
-        peak = NON_TENSOR_OPS_PER_S if dtype == "float32" \
-            else BF16_TENSOR_OPS_PER_S
-        bms, by = bound_ms(nbytes, flops, peak)
+        bms, by, bounds = b4_bounds(shape)
         row = {"shape": list(shape), "max_abs_err": err, "bound_ms": bms,
-               "bound_by": by}
+               "bound_by": by, "bounds": bounds}
         if timed:
             row["call_ms"] = time_ms(kernel)
             row["plain_call_ms"] = time_ms(plain, calls=3)
@@ -320,18 +296,37 @@ class AttentionBench:
             # The library yardstick where the shape is one self-attention
             # call (Sq = Sk); never called by the port.
             row["library_ms"] = device_ms(library) if Sq == Sk else None
+        if ab and self.baseline is not None:
+            def old():
+                return self.baseline(q, k, v, causal=causal)
+            base_err = float((old().float() - want.float()).abs().max())
+            if not base_err < B4_TOL[dtype]:
+                raise AssertionError(f"the baseline flash_attention differs "
+                                     f"from the plain version by {base_err}"
+                                     f" at {shape}")
+            row["baseline_err"] = base_err
+            # Both builds name their kernel fa_forward_kernel<T, D>, so
+            # each is timed in a profiler session of its own.
+            row["ab_ms"], row["baseline_ms"] = abba_ms([kernel, old])
         del q, k, v, got, want
         torch.cuda.empty_cache()
         return row
 
 
 def print_b4_row(row):
-    print(f"  flash_attention {str(tuple(row['shape'])):48s} err "
-          f"{row['max_abs_err']:.3g}; device ms: kernel {fmt_ms(row['ms'])}, "
-          f"plain {fmt_ms(row['plain_ms'])}, library "
-          f"{fmt_ms(row['library_ms'])}, bound {row['bound_ms']:.4f} "
-          f"({row['bound_by']}); per call back to back: kernel "
-          f"{fmt_ms(row['call_ms'])}")
+    bounds = ", ".join(f"{k} {v:.4f}" for k, v in row["bounds"].items())
+    line = (f"  flash_attention {str(tuple(row['shape'])):48s} "
+            f"err "
+            f"{row['max_abs_err']:.3g}; device ms: kernel {fmt_ms(row['ms'])}"
+            f", plain {fmt_ms(row['plain_ms'])}, library "
+            f"{fmt_ms(row['library_ms'])}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}; {bounds}); per call back to back: kernel "
+            f"{fmt_ms(row['call_ms'])}")
+    if "baseline_ms" in row:
+        line += (f"; A/B (ABBA) kernel {fmt_ms(row['ab_ms'])} vs baseline "
+                 f"{fmt_ms(row['baseline_ms'])} (baseline err "
+                 f"{row['baseline_err']:.3g})")
+    print(line)
 
 
 def print_row(name, row):
@@ -849,6 +844,10 @@ def main() -> int:
                         "beside B1-B3 on the same inputs; its C entries "
                         "must take no launch plan or this checkout's (see "
                         "measure.bind_baseline)")
+    parser.add_argument("--b4-baseline", type=Path, default=None,
+                        help="another csrc/flash_attention.cu whose "
+                        "fa_forward takes this checkout's 14 arguments, "
+                        "built and timed beside B4 on the same inputs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card",
@@ -880,15 +879,22 @@ def main() -> int:
     # 2. Build, the baseline source (if any) alongside.
     t0 = time.perf_counter()
     baseline = Baseline(args.baseline) if args.baseline else None
+    fa_base = FaBaseline(args.b4_baseline) if args.b4_baseline else None
     logs = _build.build(_build.sources())
-    if baseline is not None:
-        baseline.load()
+    for extra in (baseline, fa_base):
+        if extra is not None:
+            extra.load()
     record["build_s"] = time.perf_counter() - t0
     print(f"build: {record['build_s']:.2f} s for {_build.sources()}")
+    record["ptxas"] = {}
     for name, text in logs.items():
-        regs = sorted({line.split("Used ")[1].split(",")[0]
-                       for line in text.splitlines() if "Used " in line})
-        print(f"  {name}.cu ptxas: {', '.join(regs)}")
+        record["ptxas"][name] = _build.ptxas_report(text)
+        print(f"  {name}.cu, ptxas per kernel: registers, stack / spill "
+              f"store / spill load bytes")
+        for r in record["ptxas"][name]:
+            print(f"    {r['registers']} regs, {r['stack']} / "
+                  f"{r['spill_stores']} / {r['spill_loads']} B  "
+                  f"{r['function'][:80]}")
 
     # 3. Kernel vs plain, on the card.
     rng = np.random.default_rng(args.seed)
@@ -908,10 +914,13 @@ def main() -> int:
             record["ab_shapes"].append(rows)
             for name, row in rows.items():
                 print_row(name, row)
-    abench = AttentionBench(fa, ref, dev)
+    abench = AttentionBench(fa, ref, dev, fa_base)
     record["b4_shapes"] = []
+    if fa_base is not None:
+        print(f"B4 A/B against {args.b4_baseline} at S >= {B4_AB_MIN_S}, "
+              f"same inputs, a profiler session per kernel and pass  [{card}]")
     for shape in B4_SHAPES:
-        row = abench.run(shape, rng)
+        row = abench.run(shape, rng, ab=shape[3] >= B4_AB_MIN_S)
         record["b4_shapes"].append(row)
         print_b4_row(row)
 
@@ -985,19 +994,26 @@ def main() -> int:
     # B4 timed at the largest prefill shape the serving path gave it.
     s_max = len(longest.prompt)
     row = abench.run((1, cfg.num_heads, cfg.num_kv_heads, s_max, s_max,
-                      cfg.head_dim, True, "float32"), rng)
+                      cfg.head_dim, True, "float32"), rng, ab=True)
     print("B4 at the largest prefill shape the serving path gave it:")
     print_b4_row(row)
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": B4_SOURCE,
         "replaces": B4_REPLACES,
         "launches": serve_rec["launches"]["flash_attention"],
-        "max_abs_err": abench.max_err, "ms": row["ms"],
+        # Over every B4 check of this run, f32 and bf16 alike; by dtype
+        # beside it.
+        "max_abs_err": max(abench.max_err.values()),
+        "max_abs_err_by_dtype": abench.max_err, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": row["shape"], "call_ms": row["call_ms"],
-        # The template instance the path runs: element type, head dim.
-        "variant": f"fa_forward<float32, {cfg.head_dim}>"})
+        "bounds": row["bounds"],
+        # What the path runs: element type and head dim; f32 products as
+        # three TF32 MMAs.
+        "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, "
+                   f"mma.sync 3xTF32",
+        **{k: row[k] for k in ("ab_ms", "baseline_ms") if k in row}})
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -86,6 +86,37 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     return logs
 
 
+def ptxas_report(text: str) -> List[dict]:
+    """Per kernel function in ``nvcc -Xptxas -v`` output: its name
+    (demangled where ``c++filt`` exists, without return type and
+    parameters), registers, stack frame and spill bytes. Dynamic shared
+    memory is set at launch and not listed here."""
+    rows: List[dict] = []
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            rows.append({"function": line.split("'")[1], "registers": None,
+                         "stack": 0, "spill_stores": 0, "spill_loads": 0})
+        elif rows and "bytes stack frame" in line:
+            words = [int(w) for w in line.replace(",", " ").split()
+                     if w.isdigit()]
+            rows[-1].update(stack=words[0], spill_stores=words[1],
+                            spill_loads=words[2])
+        elif rows and "Used " in line and "registers" in line:
+            rows[-1]["registers"] = int(line.split("Used ")[1].split()[0])
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(
+            r["function"] for r in rows), capture_output=True, text=True)
+        demangled = names.stdout.splitlines()
+        if names.returncode == 0 and len(demangled) == len(rows):
+            for r, name in zip(rows, demangled):
+                # "void (anonymous namespace)::f<float, 64, 1>(float*, ...)"
+                # -> "f<float, 64, 1>"
+                name = name.replace("(anonymous namespace)::", "")
+                r["function"] = name.split("(")[0].split(" ", 1)[-1]
+    return rows
+
+
 def sources() -> List[str]:
     """Stems of every kernel source in ``csrc/``."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -114,4 +145,4 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["build", "load", "sources", "library_path", "nvcc",
-           "device_and_stream", "BUILD_DIR"]
+           "device_and_stream", "ptxas_report", "BUILD_DIR"]

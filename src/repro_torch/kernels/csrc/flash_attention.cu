@@ -1,5 +1,5 @@
 // Blocked (flash) attention forward with GQA and a causal mask, hand-written
-// for Hopper.
+// for Hopper's tensor cores.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py
 // (`flash_attention`, body `_fa_kernel`) together with the padding wrapper
@@ -11,204 +11,530 @@
 // masked to -1e30 where j >= Sk, or, when causal, where
 // j > i + row_offset (row_offset = Sk - Sq). The softmax is the online one
 // of _fa_kernel: per row a running max m, a running sum l and an f32
-// accumulator, rescaled by exp(m_prev - m_new) at each key tile; a row whose
-// l is 0 gives 0. Inputs are f32 or bf16; all math is f32 (no TF32); the
-// output has the input's type. D is 16, 32, 64 or 128.
+// accumulator, rescaled at each key tile; a row whose l is 0 gives 0. The
+// scores are kept in base 2 (scaled by log2(e), exponentials by
+// ex2.approx), which is the same softmax. Inputs are f32 or bf16, the
+// output has the input's type, D is 16, 32, 64 or 128.
 //
-// What bounds it on an H100: with f32 inputs the f32 FMA rate outside the
-// tensor cores (67 TFLOP/s; TF32 would break the 2e-5 tolerance), with
-// bf16 inputs the dense bf16 tensor rate (989 TFLOP/s) that a later
-// tensor-core version could reach. Both are also bounded by bytes: q, k, v
-// read once and o written once at 3.35 TB/s.
+// What bounds it on an H100 (same flops, same bytes for both types: q, k,
+// v read once and o written once at 3.35 TB/s):
+//  * f32 inputs: the tensor cores' dense TF32 rate (495 TFLOP/s) for three
+//    times the flops, since every product is taken three times (below);
+//    beside it, the f32 FMA rate outside the tensor cores (67 TFLOP/s) for
+//    the flops once, which the previous, scalar version of this kernel was
+//    held to. The smaller of the two is the bound.
+//  * bf16 inputs: the dense bf16 tensor rate (989 TFLOP/s).
+//  mma.sync itself peaks at about two thirds of those rates on this card
+//  (scripts/mma_peak.py). At B = 1 the time is also the heaviest block's
+//  walk over the keys, a chain of dependent MMAs.
 //
-// What the design does about it (simple first; wgmma/mma.sync, TMA and one
-// K/V tile shared by a GQA group come later):
-//  * One block of 256 threads per (query tile of 64 rows, query head,
-//    batch). The TPU's sequential KV grid axis becomes a loop inside the
-//    block; nothing carries over between blocks.
-//  * The block stages its Q tile (pre-scaled) and each 64-row K/V tile in
-//    shared memory as f32, so the score and value products read no device
-//    memory; rows are padded to D + 1 floats so that the column reads of
-//    the score product hit 32 different banks.
-//  * A 16 x 16 thread grid: each thread computes a 4 x 4 block of the 64 x
-//    64 score tile in registers (rows 4*ty..4*ty+3, columns tx + 16*j) and
-//    owns the same 4 rows x D/16 columns of the output accumulator. The
-//    row max and row sum reduce over the 16 tx lanes with shuffles, so
-//    every thread holds (m, l) of its rows and rescales its accumulator
-//    without a second pass. P goes through shared memory to the value
-//    product.
-//  * Causal: the loop stops after the last key tile that any row of the Q
-//    tile can see. Sq and Sk are masked in the kernel (rows past Sq are not
-//    stored, keys past Sk score -1e30), so no shape needs host padding and
-//    no shape falls back to another path.
+// Why 3xTF32: one TF32 product keeps 10 mantissa bits, and attention in
+// TF32 is ~1e-3 off the f32 result, above the 2e-5 f32 tolerance. Each f32
+// operand x is split into hi = tf32(x) (cvt.rna) and lo = x - hi, which
+// the MMA reads toward zero; hi*hi + hi*lo + lo*hi with f32 accumulation
+// drops only lo*lo and lo's cut bits (~2^-21 relative) and lands ~1e-6
+// off (tests/test_torch_attention.py emulates both schemes on the CPU).
+// bf16 inputs: Q K^T is exact in one bf16 MMA with f32 accumulation. For
+// P V, P (f32, in [0, 1]) is rounded to bf16 (8 mantissa bits) to be the
+// MMA's A operand, as SDPA's and FlashAttention's bf16 kernels do; the
+// reference computes P V in f32. That costs up to ~2^-9 of each weight,
+// which moves the bf16 output by about one of its own units of last place
+// (max error ~1.6e-2 at |o| in [2, 4), PERF.md) and no more than that, so
+// the 2e-2 bf16 tolerance holds up to |o| < 4. Splitting P into a bf16
+// hi and lo would keep f32 but double the MMAs of P V; no path of the port
+// runs bf16 attention yet.
+//
+// Design, against the five causes that held back the previous version
+// (scalar FMAs; synchronous staging; P through shared memory; the causal
+// critical path; no K/V sharing in a GQA group):
+//  1. Tensor cores: each warp takes 16 query rows and keeps their Q
+//     fragments in registers (f32: pre-scaled by log2(e)/sqrt(D) and split
+//     once into hi and lo, at D = 128 at every tile, for registers; bf16:
+//     as stored, the scores scaled in f32).
+//     S = Q K^T and O += P V run on mma.sync: m16n8k8 TF32, three MMAs a
+//     fragment pair, for f32; m16n8k16 bf16, one MMA, for bf16. The two
+//     small TF32 products of S and of P V go to accumulators of their
+//     own, so that no three MMAs wait on each other.
+//     mma.sync and not wgmma: wgmma with TF32 takes only K-major operands,
+//     so V would have to be transposed in shared memory; that, TMA and
+//     warp specialisation are the next step (ROADMAP.md).
+//  2. Asynchronous copies: K/V tiles of BK keys (64; 32 for f32 at
+//     D = 128, for registers) go by cp.async in 16-byte chunks, in the
+//     input's own type, into two stages: tile t + 1 loads while tile t is
+//     multiplied. The TF32 split is done as fragments are read from shared
+//     memory (a shared split copy of each tile measured no faster). Rows
+//     are padded by 16 bytes (f32: D + 4, bf16: D + 8 elements) so that
+//     every fragment read is free of bank conflicts. Keys past Sk are
+//     zero-filled by the copy (src-size 0), so no garbage reaches P V.
+//  3. P stays in registers: the m16n8 accumulator of S is the A operand of
+//     P V. For bf16 its layout is the m16n8k16 A layout, packed pairwise.
+//     For TF32 the accumulator holds key columns (2t, 2t+1) where the A
+//     fragment wants (t, t + 4): V's B fragment is read in the permuted key
+//     order (rows 2t and 2t + 1), so P needs no shuffle.
+//  4. Causal critical path: the query-tile index is the slowest grid axis,
+//     reversed, so the heaviest tiles are issued first; a warp skips the
+//     MMAs of its keys of a tile that lie wholly above its rows' diagonal;
+//     a block stops after the last tile any of its rows can see. A block
+//     takes 32 query rows, and the two warps of each 16-row group take half
+//     of every key tile each, merging (m, l, acc) at the end ("key
+//     halves"): the heaviest walk takes half the MMAs a warp. The serving
+//     path prefills one request at a time (B = 1) at up to 2,048 tokens,
+//     where the grid is at most 9 x 64 = 576 such blocks and the heaviest
+//     walk sets the time. 64-row blocks (4 warps x 16 rows, K/V tiles
+//     shared among more rows) were faster only where B * H * ceil(Sq / 64)
+//     exceeds ~3 blocks an SM, which no path of the port launches (PERF.md).
+//  5. GQA: a block per GQA group of three query heads on one shared K/V
+//     stage (3 times fewer K/V bytes and blocks) lost at the serving
+//     shapes on the card (PERF.md) and was removed: at B = 1 it
+//     leaves a third of the blocks, and the heaviest walk does not shrink.
 //
 // Every launch goes on the caller's stream, on the device index the caller
 // names (this library links its own CUDA runtime, whose current device is
-// not PyTorch's), and returns cudaGetLastError().
+// not PyTorch's), and returns cudaGetLastError(). q, k, v and o must start
+// 16-byte aligned (the wrapper guarantees it); otherwise the entry returns
+// cudaErrorMisalignedAddress and launches nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kRows = 4;         // score rows per thread
-constexpr int kCols = 4;         // score columns per thread
+constexpr int kWarpRows = 16;             // query rows per warp
+constexpr int kWarps = 4;                 // warps a block
 constexpr float kNegInf = -1e30f;
-static_assert(kBQ == kBK && kBQ == 16 * kRows && kBK == 16 * kCols,
-              "one 64-row tile shape; a 16 x 16 thread grid covers it");
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-constexpr size_t smem_bytes(int d) {
-  return sizeof(float) *
-         ((size_t)(kBQ + 2 * kBK) * (d + 1) + (size_t)kBQ * (kBK + 1));
-}
-
-// Stages a 64-row tile (kBQ == kBK) of a contiguous (S, D) slice as f32
-// rows of D + 1 floats; rows at or past rows_left read as 0.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const T* __restrict__ src,
-                                          int rows_left, float scale) {
-  // The tile is one contiguous run of 64 * D elements: consecutive threads
-  // read consecutive elements.
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r < rows_left ? to_f32(src[i]) * scale : 0.f;
+struct Tile {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int BK = (kF32 && D == 128) ? 32 : 64;  // keys per tile
+  static constexpr int LD = D + 16 / (int)sizeof(T);       // padded row
+  static constexpr int ELEMS = BK * LD;                    // one K or V tile
+  static constexpr int CHUNK = 16 / (int)sizeof(T);        // elements / copy
+  static constexpr int CHUNKS = D / CHUNK;                 // copies per row
+  static constexpr size_t SMEM = 2 * 2 * ELEMS * sizeof(T);  // 2 stages K, V
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo: hi = tf32(x) rounded to nearest; lo = x - hi, exact in f32,
+// goes to the MMA as it is, which reads its top 19 bits (rounding toward
+// zero): lo loses at most 2^-21 |x|, as much as the dropped lo * lo.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// The same, kept in the loop it is written in (volatile): at D = 128 Q's
+// split hoisted out of the key loop would hold 64 more registers a thread
+// and spill.
+__device__ __forceinline__ void split_in_place(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  asm volatile("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a*b in three TF32 products, the two small ones into cs (which may
+// be c itself: then they go first).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], float (&cs)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma_tf32(cs, al, bh0, bh1);
+  mma_tf32(cs, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Two 8x8 bf16 matrices of rows (keys) r..r+15 transposed into the B
+// fragment of m16n8k16, for two 8-column groups: (b0, b1) of columns
+// c..c+7 and of c+8..c+15.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Issues the copies of one K and one V tile (keys k0 .. k0 + BK - 1) into
+// a stage; rows at or past Sk are zero-filled.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void load_kv(T* sk, T* sv, const T* __restrict__ kb,
+                                        const T* __restrict__ vb, int k0,
+                                        int Sk) {
+  using C = Tile<T, D>;
+  for (int i = threadIdx.x; i < C::BK * C::CHUNKS; i += NT) {
+    const int r = i / C::CHUNKS, c = (i % C::CHUNKS) * C::CHUNK;
+    const bool ok = k0 + r < Sk;
+    const long long src = (long long)(ok ? k0 + r : 0) * D + c;
+    cp_async16(sk + r * C::LD + c, kb + src, ok);
+    cp_async16(sv + r * C::LD + c, vb + src, ok);
   }
 }
 
+// One block: 32 query rows of one query head, 4 warps. Warp w takes rows
+// 16 (w % 2) .. + 15 and keys (w / 2) BK/2 .. + BK/2 - 1 of every tile: the
+// block's walk over the keys takes half the MMAs a warp, and the two key
+// halves merge their (m, l, acc) at the end. Grid: x = query head,
+// y = batch, z = query tile (reversed under causal, so that the longest
+// walks start first).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kWarps)
 fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int H, int KH,
-                  int Sq, int Sk, int causal, int row_offset, float scale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int LD = D + 1;
-  constexpr int LP = kBK + 1;
-  constexpr int CO = D / 16;     // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBQ * LD;
-  float* sV = sK + kBK * LD;
-  float* sP = sV + kBK * LD;
+                  int Sq, int Sk, int causal, int row_offset, float qk_scale) {
+  using C = Tile<T, D>;
+  constexpr bool F32 = C::kF32;
+  constexpr int BK = C::BK, LD = C::LD, NT = 32 * kWarps;
+  constexpr int RG = kWarps / 2;       // 16-row groups of a block
+  constexpr int BQ = RG * kWarpRows;   // query rows of a block
+  constexpr int KW = BK / 2;           // keys of a tile a warp takes
+  constexpr int NS = KW / 8;   // 8-key column groups of a warp's scores
+  constexpr int ND = D / 8;    // 8-wide column groups of the output
+  constexpr int KQ = F32 ? D / 8 : D / 16;   // k-steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);  // [stage][K, V][BK][LD]
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y;
+  const int rg = warp % RG, half = warp / RG;
+  const int h = blockIdx.x;
   const int kvh = h / (H / KH);
-  const T* qb = q + ((long long)(b * H + h) * Sq + q0) * D;
+  const int wr = q0 + rg * kWarpRows;   // the warp's first row
+  const int kw = half * KW;             // its first key in every tile
   const T* kb = k + (long long)(b * KH + kvh) * Sk * D;
   const T* vb = v + (long long)(b * KH + kvh) * Sk * D;
+  const T* qb = q + (long long)(b * H + h) * Sq * D;
 
-  load_tile<T, D>(sQ, qb, Sq - q0, scale);
-
-  float m[kRows], l[kRows], acc[kRows][CO];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CO; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_tiles = (Sk + kBK - 1) / kBK;
+  int n_tiles = (Sk + BK - 1) / BK;
   if (causal) {
-    const int last_row = min(q0 + kBQ, Sq) - 1 + row_offset;
-    n_tiles = min(n_tiles, last_row / kBK + 1);
+    const int last_row = min(q0 + BQ, Sq) - 1 + row_offset;
+    n_tiles = min(n_tiles, last_row / BK + 1);
   }
+  // The first tile's copies fly while Q's fragments load.
+  load_kv<T, D, NT>(smem, smem + C::ELEMS, kb, vb, 0, Sk);
+  cp_async_commit();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, D>(sK, kb + (long long)k0 * D, Sk - k0, 1.f);
-    load_tile<T, D>(sV, vb + (long long)k0 * D, Sk - k0, 1.f);
-    __syncthreads();
-
-    float s[kRows][kCols];
+  // Q's A fragments (rows g and g + 8 of the warp's 16), kept in registers:
+  // f32 split once into hi and lo, or at D = 128 kept as f32 (qf) and split
+  // at every tile; rows past Sq read as 0 and are never stored.
+  constexpr bool kQOnce = D <= 64;
+  const int r0 = wr + g, r1 = wr + g + 8;
+  uint32_t qh[KQ][4], ql[F32 && kQOnce ? KQ : 1][4];
+  float qf[F32 && !kQOnce ? KQ : 1][4];
+  if constexpr (F32) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int c = 8 * kk + t;
+      const float x[4] = {
+          r0 < Sq ? qb[(long long)r0 * D + c] * qk_scale : 0.f,
+          r1 < Sq ? qb[(long long)r1 * D + c] * qk_scale : 0.f,
+          r0 < Sq ? qb[(long long)r0 * D + c + 4] * qk_scale : 0.f,
+          r1 < Sq ? qb[(long long)r1 * D + c + 4] * qk_scale : 0.f};
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[kRows], ka[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qa[i] = sQ[(ty * kRows + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) ka[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = k0 + tx + 16 * j;
-        if (col >= Sk || (causal && col > row + row_offset)) s[i][j] = kNegInf;
-        mt = fmaxf(mt, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kQOnce)
+          split(x[e], qh[kk][e], ql[kk][e]);
+        else
+          qf[kk][e] = x[e];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off, 16));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        sP[(ty * kRows + i) * LP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off, 16);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CO; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pa[kRows], va[CO];
+  } else {
+    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qb);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pa[i] = sP[(ty * kRows + i) * LP + j];
-#pragma unroll
-      for (int c = 0; c < CO; ++c) va[c] = sV[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < CO; ++c) acc[i][c] = fmaf(pa[i], va[c], acc[i][c]);
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int c = (16 * kk + 2 * t) / 2;   // in bf16 pairs
+      qh[kk][0] = r0 < Sq ? q32[(long long)r0 * (D / 2) + c] : 0u;
+      qh[kk][1] = r1 < Sq ? q32[(long long)r1 * (D / 2) + c] : 0u;
+      qh[kk][2] = r0 < Sq ? q32[(long long)r0 * (D / 2) + c + 4] : 0u;
+      qh[kk][3] = r1 < Sq ? q32[(long long)r1 * (D / 2) + c + 4] : 0u;
     }
   }
 
-  T* ob = o + ((long long)(b * H + h) * Sq + q0) * D;
+  // f32 keeps the small products of P V apart (accs), so that no three
+  // MMAs wait on each other: the heaviest block's walk, a chain of
+  // dependent MMAs, sets the time.
+  constexpr bool kSepPV = F32;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[ND][4], accs[kSepPV ? ND : 1][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty * kRows + i;
-    if (q0 + r >= Sq) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int c = 0; c < CO; ++c)
-      store(ob + (long long)r * D + tx + 16 * c, acc[i][c] * inv);
+    for (int e = 0; e < 4; ++e) acc[n][e] = accs[kSepPV ? n : 0][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    if (it + 1 < n_tiles) {
+      T* next = smem + ((it + 1) & 1) * 2 * C::ELEMS;
+      load_kv<T, D, NT>(next, next + C::ELEMS, kb, vb, k0 + BK, Sk);
+    }
+    cp_async_commit();   // an empty group on the last tile keeps the count
+    cp_async_wait<1>();  // this thread's copies of tile `it` have landed
+    __syncthreads();     // and every other thread's
+
+    const T* sK = smem + (it & 1) * 2 * C::ELEMS;
+    const T* sV = sK + C::ELEMS;
+    // A warp whose rows are all past Sq, or all above its first key of this
+    // tile (causal), has nothing to add.
+    const int c0 = k0 + kw;   // the warp's first key
+    const bool live = wr < Sq && !(causal && c0 > wr + kWarpRows - 1 +
+                                                row_offset);
+    if (live) {
+      // S = Q K^T: sc[j] holds rows (g, g + 8) x keys c0 + 8j + (2t, 2t+1).
+      float sc[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      if constexpr (F32) {
+        float ss[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ss[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KQ; ++kk) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kQOnce) {
+              ah[e] = qh[kk][e];
+              al[e] = ql[kk][e];
+            } else {
+              split_in_place(qf[kk][e], ah[e], al[e]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const float* kr = sK + (kw + 8 * j + g) * LD + 8 * kk + t;
+            mma_3xtf32(sc[j], ss[j], ah, al, kr[0], kr[4]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += ss[j][e];
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const uint32_t* kr = reinterpret_cast<const uint32_t*>(
+                sK + (kw + 8 * j + g) * LD + 16 * kk + 2 * t);
+            mma_bf16(sc[j], qh[kk], kr[0], kr[4]);
+          }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= qk_scale;
+      }
+
+      // Masks, only where the warp's keys reach past Sk or across the
+      // diagonal.
+      if (c0 + KW > Sk || (causal && c0 + KW - 1 > wr + row_offset)) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            const int row = wr + g + (e >> 1) * 8;
+            if (col >= Sk || (causal && col > row + row_offset))
+              sc[j][e] = kNegInf;
+          }
+      }
+
+      // Online softmax on the fragments; rows are reduced over the quad of
+      // lanes that shares them. l stays a per-lane partial sum until the
+      // end (every lane of a quad rescales by the same alpha). A row that
+      // has seen only masked keys (a second key half can start above the
+      // diagonal) keeps p = 0: its exponent is taken against 0, not -1e30.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = m[r];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mt = fmaxf(mt, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float mu = mt == kNegInf ? 0.f : mt;
+        const float alpha = ex2(m[r] - mu);
+        m[r] = mt;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          sc[j][2 * r] = ex2(sc[j][2 * r] - mu);
+          sc[j][2 * r + 1] = ex2(sc[j][2 * r + 1] - mu);
+          rs += sc[j][2 * r] + sc[j][2 * r + 1];
+        }
+        l[r] = l[r] * alpha + rs;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+          if constexpr (kSepPV) {
+            accs[n][2 * r] *= alpha;
+            accs[n][2 * r + 1] *= alpha;
+          }
+        }
+      }
+
+      // O += P V with P straight from the score registers.
+      if constexpr (F32) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          // k index t <-> key 8j + 2t, t + 4 <-> key 8j + 2t + 1.
+          const float pa[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+          uint32_t ph[4], pl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(pa[e], ph[e], pl[e]);
+          const float* vr = sV + (kw + 8 * j + 2 * t) * LD + g;
+#pragma unroll
+          for (int n = 0; n < ND; ++n)
+            mma_3xtf32(acc[n], accs[n], ph, pl, vr[8 * n], vr[LD + 8 * n]);
+        }
+      } else {
+        // P rounded to bf16 for the MMA (source note).
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          const uint32_t pa[4] = {
+              pack_bf16(sc[2 * j][0], sc[2 * j][1]),
+              pack_bf16(sc[2 * j][2], sc[2 * j][3]),
+              pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+              pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+          // Lanes 0-15 address keys kw + 16j + (lane % 16), columns 8n;
+          // lanes 16-31 the same keys, columns 8n + 8.
+          const T* vr =
+              sV + (kw + 16 * j + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+          for (int n = 0; n < ND; n += 2) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, vr + 8 * n);
+            mma_bf16(acc[n], pa, bv[0], bv[1]);
+            mma_bf16(acc[n + 1], pa, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage (it & 1) is read; the next issue refills it
+  }
+
+  if constexpr (kSepPV) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += accs[n][e];
+  }
+  // l is summed over the quad. The second key half of each row group hands
+  // its (m, l, acc) to the first through shared memory, free after the
+  // loop's last sync, element-major so that lanes hit distinct banks.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  constexpr int XW = 4 + 4 * ND;   // floats a lane hands over
+  float* xch = reinterpret_cast<float*>(smem_raw) +
+               rg * 32 * XW + lane;
+  if (half == 1) {
+    xch[0] = m[0];
+    xch[32] = m[1];
+    xch[64] = l[0];
+    xch[96] = l[1];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xch[32 * (4 + 4 * n + e)] = acc[n][e];
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mo = xch[32 * r], mn = fmaxf(m[r], mo);
+    const float a = ex2(m[r] - mn), c = ex2(mo - mn);
+    l[r] = l[r] * a + xch[32 * (2 + r)] * c;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e)
+        acc[n][e] = acc[n][e] * a + xch[32 * (4 + 4 * n + e)] * c;
+  }
+
+  // Rows past Sq are not stored.
+  T* ob = o + (long long)(b * H + h) * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = l[r];
+    const int row = wr + g + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      store2(ob + (long long)row * D + 8 * n + 2 * t, acc[n][2 * r] * inv,
+             acc[n][2 * r + 1] * inv);
   }
 }
 
@@ -216,24 +542,29 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KH, int Sq, int Sk, int causal, int row_offset,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  using C = Tile<T, D>;
+  static_assert((kWarps / 2) * 32 * (4 + D / 2) * sizeof(float) <= C::SMEM,
+                "the merge of the key halves reuses the stages");
+  constexpr int BQ = kWarps / 2 * kWarpRows;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  if (B > 65535 || n_qt > 65535) return (int)cudaErrorInvalidValue;
   // Above 48 KB a block's dynamic shared memory has to be allowed first.
   cudaError_t err = cudaFuncSetAttribute(
       fa_forward_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  const float scale = 1.f / sqrtf((float)D);
-  fa_forward_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(H, B, n_qt);
+  const float inv_sqrt_d = 1.f / sqrtf((float)D);
+  fa_forward_kernel<T, D><<<grid, 32 * kWarps, C::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KH, Sq, Sk, causal,
-      row_offset, scale);
+      row_offset, inv_sqrt_d * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KH, int Sq, int Sk, int D, int causal, int off,
-               cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int H, int KH, int Sq, int Sk, int D, int causal, int off,
+             cudaStream_t s) {
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
     case 32: return launch<T, 32>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
@@ -247,23 +578,40 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The wrapper has checked shapes, types,
-// contiguity, D in {16, 32, 64, 128}, H % KH == 0, Sk >= 1 and, when causal,
-// Sk >= Sq (row_offset >= 0, so every row sees at least key 0).
+// contiguity, D in {16, 32, 64, 128}, H % KH == 0, Sk >= 1 and, when
+// causal, Sk >= Sq (row_offset >= 0, so every row sees at least key 0).
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int B, int H, int KH, int Sq, int Sk, int D,
                           int causal, int dtype, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaGetLastError();
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
+    return (int)cudaErrorMisalignedAddress;
   const int row_offset = causal ? Sk - Sq : 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, H, KH, Sq, Sk, D, causal,
-                             row_offset, s);
+    return dispatch<float>(q, k, v, o, B, H, KH, Sq, Sk, D, causal,
+                           row_offset, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, KH, Sq, Sk, D, causal,
-                                     row_offset, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, Sq, Sk, D, causal,
+                                   row_offset, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block (two stages of K and V), for reports.
+extern "C" int fa_smem_bytes(int dtype, int D) {
+  switch (D * 2 + dtype) {
+    case 32: return (int)Tile<float, 16>::SMEM;
+    case 64: return (int)Tile<float, 32>::SMEM;
+    case 128: return (int)Tile<float, 64>::SMEM;
+    case 256: return (int)Tile<float, 128>::SMEM;
+    case 33: return (int)Tile<__nv_bfloat16, 16>::SMEM;
+    case 65: return (int)Tile<__nv_bfloat16, 32>::SMEM;
+    case 129: return (int)Tile<__nv_bfloat16, 64>::SMEM;
+    case 257: return (int)Tile<__nv_bfloat16, 128>::SMEM;
+    default: return -1;
+  }
 }
 
 extern "C" const char* fa_error_string(int code) {

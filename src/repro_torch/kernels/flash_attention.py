@@ -7,10 +7,21 @@ its padding wrapper ``repro/kernels/ops.py:flash_attention``.
 :func:`flash_attention` takes the reference's layout: q ``(B, H, Sq, D)``,
 k and v ``(B, KH, Sk, D)`` with ``H % KH == 0`` (query head ``h`` reads KV
 head ``h // (H // KH)``), scale ``1/sqrt(D)``, causal rows offset by
-``Sk - Sq``. Inputs are f32 or bf16, the math is f32 and the output has the
-input's dtype. The kernel masks ragged ``Sq`` and ``Sk`` itself, so no
-shape is padded on the host and none goes to another path; the reference's
-ragged non-causal fallback to its oracle is gone.
+``Sk - Sq``. Inputs are f32 or bf16 and the output has the input's dtype.
+The kernel multiplies on the tensor cores with f32 accumulation: f32
+inputs as three TF32 products (hi*hi + hi*lo + lo*hi, within ~1e-6 of
+f32), bf16 inputs as one bf16 product, for which the softmax weights P
+(f32) are rounded to bf16 before P @ V, as SDPA's bf16 kernels do (the
+reference takes P @ V in f32; the source note gives the error this costs).
+The softmax itself is f32. The kernel masks ragged ``Sq`` and ``Sk``
+itself, so no shape is padded on the host and none goes to another path;
+the reference's ragged non-causal fallback to its oracle is gone.
+
+The kernel copies K/V tiles with 16-byte ``cp.async``: contiguity puts
+every row of q, k, v a multiple of 32 bytes (``D >= 16``) after the
+tensor's first element, and a tensor whose first element is not 16-byte
+aligned (a view at an odd offset) is copied first, so that every launch is
+aligned.
 
 Inputs the wrapper refuses on every device: ``D`` outside {16, 32, 64,
 128}, ``Sk == 0``, and causal with ``Sk < Sq``, where the first rows see no
@@ -54,6 +65,8 @@ def _lib() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fa_forward.argtypes = [vp, vp, vp, vp] + [i32] * 9 + [vp]
         lib.fa_forward.restype = i32
+        lib.fa_smem_bytes.argtypes = [i32, i32]
+        lib.fa_smem_bytes.restype = i32
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -96,12 +109,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, H, KH, Sq, Sk, D
 
 
+def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory of one block of the kernel (two stages of K
+    and V tiles), as the built library reports it."""
+    return _lib().fa_smem_bytes(_DTYPES[dtype], head_dim)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention forward (kernel B4). q (B,H,Sq,D), k/v (B,KH,Sk,D)."""
     B, H, KH, Sq, Sk, D = _check(q, k, v, causal)
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     code = _lib().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH,
@@ -114,5 +138,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-__all__ = ["flash_attention", "launches", "reset_launch_counts",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention", "smem_bytes", "launches",
+           "reset_launch_counts", "HEAD_DIMS"]

@@ -1,10 +1,13 @@
-"""Timing and same-run A/B helpers for kernels B1–B3 on the card.
+"""Timing and same-run A/B helpers for the kernels on the card.
 
-Shared by ``chip_smoke.py`` and ``scripts/ell_route_sweep.py``: the card's
-name and power limit, device time per call from the profiler, the byte and
-operation bound, the random bucket inputs both time on, and
+Shared by ``chip_smoke.py``, ``scripts/ell_route_sweep.py`` and
+``scripts/attention_sweep.py``: the card's name and power limit, device
+time per call from the profiler, the byte and operation bound, the random
+bucket inputs B1–B3 time on, B4's shapes, tolerances and bounds,
 :class:`Baseline`, an earlier ``neighbor_min.cu`` built and called beside
-the current one. Nothing here touches the card or ``nvcc`` at import time.
+the current one, and :class:`FaBaseline`, the same for
+``flash_attention.cu`` (B4). Nothing here touches the card or ``nvcc`` at
+import time.
 """
 
 from __future__ import annotations
@@ -19,7 +22,27 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM peak outside the tensor cores
+TF32_TENSOR_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 INF = 2**31 - 1
+
+# B4 shapes (B, H, KH, Sq, Sk, D, causal, dtype): the reference's kernel
+# test (tests/test_kernels.py), smollm-135m prefills at three prompt
+# lengths, and a batch of eight long ones.
+B4_SHAPES = [
+    (1, 4, 4, 128, 128, 64, True, "float32"),
+    (2, 4, 2, 128, 128, 64, True, "float32"),
+    (1, 8, 1, 256, 256, 64, True, "bfloat16"),
+    (2, 4, 4, 128, 384, 64, True, "float32"),
+    (1, 2, 2, 192, 192, 32, False, "float32"),
+    (1, 9, 3, 130, 130, 64, True, "float32"),
+    (1, 4, 4, 64, 64, 128, True, "bfloat16"),
+] + [(1, 9, 3, s, s, 64, True, dt) for s in (24, 512, 2048)
+     for dt in ("float32", "bfloat16")] + [
+    (8, 9, 3, 2048, 2048, 64, True, dt) for dt in ("float32", "bfloat16")]
+# The reference's kernel tolerances: sums in another order, and a bf16
+# output may round one unit apart.
+B4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def card_line() -> str:
@@ -74,12 +97,54 @@ def device_ms(fn, calls: int = 20, tries: int = 3):
                for us in by_name.values()) / 1e3
 
 
+def abba_ms(fns):
+    """Device ms per call of each function, each timed alone by the
+    profiler (:func:`device_ms`) in the order A B C ... C B A, the mean of
+    its two passes (None where the profiler saw nothing). Two builds of
+    one kernel may share its name, so each is timed in a session of its
+    own."""
+    passes: dict = {}
+    for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
+        passes.setdefault(i, []).append(device_ms(fns[i]))
+    return [None if None in t else sum(t) / 2 for _, t in sorted(
+        passes.items())]
+
+
 def bound_ms(nbytes: int, ops: int, ops_per_s: float = NON_TENSOR_OPS_PER_S):
     """(ms, "bytes" or "operations"): the larger of the bytes over the
     memory rate and the operations over the peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b4_bytes_and_ops(B, H, KH, Sq, Sk, D, causal, dtype):
+    """Bytes (q, k, v read once, o written once) and flops of B4: 2 per
+    multiply-add of the score and value products, over the (row, key)
+    pairs the mask lets through."""
+    esize = 4 if dtype == "float32" else 2
+    nbytes = esize * D * (2 * B * H * Sq + 2 * B * KH * Sk)
+    if causal:   # row i sees keys 0 .. i + Sk - Sq
+        pairs = Sq * (Sk - Sq + 1) + Sq * (Sq - 1) // 2
+    else:
+        pairs = Sq * Sk
+    return nbytes, 4 * D * B * H * pairs
+
+
+def b4_bounds(shape):
+    """(bound ms, what bounds it, every bound by name) of B4 at ``shape``:
+    bytes against, for f32, the f32 FMA rate for the flops once and the
+    TF32 tensor rate for the flops three times (the kernel's split
+    products), the smaller of the two; for bf16 the bf16 tensor rate."""
+    nbytes, flops = b4_bytes_and_ops(*shape)
+    if shape[-1] == "float32":
+        bounds = {"f32_fma": bound_ms(nbytes, flops, NON_TENSOR_OPS_PER_S),
+                  "tf32x3": bound_ms(nbytes, 3 * flops,
+                                     TF32_TENSOR_OPS_PER_S)}
+    else:
+        bounds = {"bf16": bound_ms(nbytes, flops, BF16_TENSOR_OPS_PER_S)}
+    ms, by = min(bounds.values())
+    return ms, by, {name: b[0] for name, b in bounds.items()}
 
 
 def kernel_inputs(B, R, W, rng, dev):
@@ -132,32 +197,44 @@ def bind_baseline(lib) -> int:
     return version
 
 
-class Baseline:
-    """The ELL kernels built from another ``neighbor_min.cu``, timed beside
-    the current ones on the same inputs. A source whose entries take a
-    launch plan runs under this checkout's ``launch_plan``."""
+class _BaselineBuild:
+    """Starts ``nvcc`` on another kernel source at construction; ``load``
+    waits for it and returns the library. The library is named by the
+    source's hash: a process that loads two baselines would otherwise get
+    the first library back from the loader."""
+
+    stem = "base"
 
     def __init__(self, source: Path):
         from . import _build
 
         out_dir = _build.BUILD_DIR / "baseline"
         out_dir.mkdir(parents=True, exist_ok=True)
-        # Named by the source's hash: a process that loads two baselines
-        # would otherwise get the first library back from the loader.
         digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:16]
         self.source = source
-        self.path = out_dir / f"libneighbor_min_base-{digest}.so"
+        self.path = out_dir / f"lib{self.stem}-{digest}.so"
         self.proc = subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(self.path),
              str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
-        self.lib, self.version = None, None
+        self.lib = None
 
-    def load(self):
+    def _library(self):
         text, _ = self.proc.communicate()
         if self.proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source}:\n{text}")
-        lib = ctypes.CDLL(str(self.path))
+        return ctypes.CDLL(str(self.path))
+
+
+class Baseline(_BaselineBuild):
+    """The ELL kernels built from another ``neighbor_min.cu``, timed beside
+    the current ones on the same inputs. A source whose entries take a
+    launch plan runs under this checkout's ``launch_plan``."""
+
+    stem = "neighbor_min_base"
+
+    def load(self):
+        lib = self._library()
         self.version = bind_baseline(lib)
         self.lib = lib
 
@@ -181,3 +258,33 @@ class Baseline:
 
     def label_agree(self, ell, labels):
         return self._call(self.lib.nm_label_agree, ell, labels)
+
+
+class FaBaseline(_BaselineBuild):
+    """Kernel B4 built from another ``flash_attention.cu`` (its C entry
+    ``fa_forward`` with the 14 arguments of this checkout's), called beside
+    the current kernel on the same inputs."""
+
+    stem = "flash_attention_base"
+
+    def load(self):
+        lib = self._library()
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fa_forward.argtypes = [vp, vp, vp, vp] + [i32] * 9 + [vp]
+        lib.fa_forward.restype = i32
+        self.lib = lib
+
+    def __call__(self, q, k, v, causal=True):
+        from . import flash_attention as fa
+        from ._build import device_and_stream
+
+        B, H, KH, Sq, Sk, D = fa._check(q, k, v, causal)
+        out = torch.empty_like(q)
+        code = self.lib.fa_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KH, Sq, Sk, D, int(causal), fa._DTYPES[q.dtype],
+            *device_and_stream(q))
+        if code != 0:
+            raise RuntimeError(f"baseline flash_attention launch failed "
+                               f"({code})")
+        return out

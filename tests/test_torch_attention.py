@@ -104,6 +104,63 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
     assert out.shape == q.shape
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 of the 23 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _tf32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """The top 19 bits of an f32, which a TF32 MMA reads of an operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernel's split product: hi = tf32(x) rounded, lo = x - hi read
+    by the MMA toward zero, and lo*hi + hi*lo + hi*hi with f32 sums (lo*lo
+    dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_toward_zero(a - ah), _tf32_toward_zero(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_with(mm, q, k, v):
+    """Causal GQA attention whose two products go through ``mm``."""
+    group = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    s = mm(q * (1.0 / q.shape[-1] ** 0.5), kr.transpose(-1, -2))
+    mask = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, ref.NEG_INF)),
+                      dim=-1)
+    return mm(p, vr)
+
+
+def test_tf32_split_keeps_the_f32_tolerance():
+    """The numerical scheme of the f32 tensor-core kernel, emulated on the
+    CPU at a serving shape (smollm-135m heads, 1,024 tokens, causal): three
+    TF32 products per f32 product stay within the f32 tolerance 2e-5 of
+    the plain version, and one TF32 product does not, which is why the
+    kernel splits. This tests the scheme, not the CUDA kernel."""
+    _, (q, k, v) = _qkv(1, 9, 3, 1024, 1024, 64, "float32", seed=11)
+    assert torch.equal(_tf32(torch.tensor([1 + 2**-11, -(1 + 2**-11),
+                                           1 + 2**-12])),
+                       torch.tensor([1 + 2**-10, -(1 + 2**-10), 1.0]))
+    assert torch.equal(_tf32_toward_zero(torch.tensor([1 + 2**-11 + 2**-12,
+                                                       -(1 + 2**-10)])),
+                       torch.tensor([1.0, -(1 + 2**-10)]))
+    want = ref.attention_ref(q, k, v, causal=True)
+    err3 = (_attention_with(_mm_3xtf32, q, k, v) - want).abs().max().item()
+    err1 = (_attention_with(_mm_tf32, q, k, v) - want).abs().max().item()
+    assert err3 < TOL["float32"]
+    assert err1 > TOL["float32"]
+
+
 @pytest.fixture(scope="module", params=[False, True],
                 ids=["plain", "qk_norm"])
 def smoke_pair(request):

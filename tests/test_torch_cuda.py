@@ -156,6 +156,81 @@ def test_cuda_flash_attention_equals_plain(cuda, shape):
     assert (got.float() - want.float()).abs().max().item() < tol
 
 
+def _attention_inputs(shape, dev, seed):
+    b, h, kh, sq, sk, d, causal, dtype = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev, getattr(torch, dtype))
+            for s in ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d))]
+
+
+# The edges of the tensor-core kernel (B, H, KH, Sq, Sk, D, causal, dtype):
+# Sq and Sk off multiples of 64 and 16, Sq = 1, Sq < Sk causal (the row
+# offset), non-causal ragged Sk, groups H/KH of 1, 3 and 8, every head dim,
+# B > 1, both dtypes; the f32 tile at D = 128 takes 32 keys.
+B4_EDGES = [
+    (1, 4, 4, 77, 77, 64, True, "float32"),
+    (1, 4, 4, 77, 77, 64, True, "bfloat16"),
+    (2, 9, 3, 45, 203, 32, True, "float32"),
+    (2, 9, 3, 45, 203, 32, True, "bfloat16"),
+    (3, 8, 1, 1, 300, 64, True, "float32"),
+    (3, 8, 1, 1, 300, 64, True, "bfloat16"),
+    (1, 2, 2, 1, 1, 16, True, "float32"),
+    (1, 3, 1, 70, 131, 64, False, "float32"),
+    (1, 3, 1, 70, 131, 64, False, "bfloat16"),
+    (2, 8, 8, 130, 7, 16, False, "float32"),
+    (1, 8, 1, 129, 129, 16, True, "bfloat16"),
+    (2, 6, 2, 100, 161, 128, True, "float32"),
+    (2, 6, 2, 100, 161, 128, True, "bfloat16"),
+    (1, 2, 1, 33, 33, 128, False, "float32"),
+    (2, 16, 2, 200, 200, 64, True, "float32"),
+    (1, 9, 3, 257, 1000, 64, True, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", B4_EDGES, ids=str)
+def test_cuda_flash_attention_edges(cuda, shape):
+    q, k, v = _attention_inputs(shape, cuda, seed=sum(shape[:6]))
+    causal, dtype = shape[6], shape[7]
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_unaligned(cuda, dtype):
+    """Views that start off a 16-byte boundary are copied by the wrapper,
+    not misread, and the C entry refuses such a pointer outright
+    (cudaErrorMisalignedAddress) instead of launching. The shape has rows
+    whose second key half starts above the diagonal."""
+    shape = (2, 9, 3, 150, 150, 64, True, dtype)
+    q, k, v = _attention_inputs(shape, cuda, seed=7)
+    want = ref.attention_ref(q, k, v, causal=True)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert (got.float() - want.float()).abs().max().item() < tol
+    q2, k2, v2 = (torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:]
+                  .view(t.shape) for t in (q, k, v))
+    assert all(t.data_ptr() % 16 for t in (q2, k2, v2))
+    got = fa.flash_attention(q2, k2, v2, causal=True)
+    assert (got.float() - want.float()).abs().max().item() < tol
+    out = torch.empty_like(q)
+    code = fa._lib().fa_forward(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 9, 3,
+        150, 150, 64, 1, int(dtype == "bfloat16"),
+        *fa._build.device_and_stream(q))
+    assert fa._lib().fa_error_string(code).decode() == \
+        "misaligned address"
+
+
 @pytest.mark.cuda
 def test_cuda_smoke_prefill_equals_cpu(cuda):
     cfg = get_smoke("smollm-135m")
