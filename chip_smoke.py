@@ -13,11 +13,18 @@ Phases, in order; any failure raises and exits non-zero:
    ``nvcc`` each, started together, and ptxas's registers, stack and spill
    bytes for every kernel instance;
 3. kernel vs plain: B1 ``neighbor_min_ell_batch``, B2
-   ``label_agree_ell_batch`` and B3 ``neighbor_min_ell`` on random inputs
-   made with numpy from ``--seed``, at shapes that take every route of
-   their launch plan, held against their plain PyTorch versions with
-   ``torch.equal`` (integer outputs: tolerance 0); with ``--baseline``,
-   also timed against an earlier kernel source on the same inputs; B4
+   ``label_agree_ell_batch`` and their one-graph form ``neighbor_min_ell``
+   (the round step of the per-graph host loop) on random inputs made with
+   numpy from ``--seed``, at shapes that take every route of their launch
+   plan, held against their plain PyTorch versions with ``torch.equal``
+   (integer outputs: tolerance 0); with ``--baseline``, also timed against
+   an earlier kernel source on the same inputs; B3 ``mis_pivot`` (every MIS
+   round and the PIVOT capture of k samples of one graph in one launch) on
+   random λ-arboric graphs under the degree cap (n = 64, 4,096 and 32,768
+   at k = 3, 60,000 above a block's shared memory, a star whose hub the cap
+   leaves out, and k = 1), each route that takes the shape held to the
+   plain version with ``torch.equal`` on status, labels and rounds, and the
+   planned route timed with its bound, registers and spills; B4
    ``flash_attention`` at the reference's kernel-test shapes, at
    smollm-135m prefill shapes (S = 24, 512, 2048; f32 and bf16) and at a
    batch of eight 2048-token prefills, within 2e-5 (f32) / 2e-2 (bf16) of
@@ -33,11 +40,19 @@ Phases, in order; any failure raises and exits non-zero:
    pass. The launch counts are zeroed just before the warm pass and read
    just after; B1 and B2 must have launched. Labels are checked against
    sequential PIVOT on the eligible-induced subgraph, every cost against
-   the host count, and 32 graphs against per-graph ``correlation_cluster``
-   on the card, which must launch B3. B1–B3 are then timed at the largest
-   shapes the path gave them, B1 and B2 also on the real arrays of the
-   largest bucket, and a breakdown gives host time per layer, the card's
-   busy share and B1's and B2's device time in a traced pass;
+   the host count; (d) 32 graphs through per-graph
+   ``correlation_cluster`` on the card, its counts zeroed just before and
+   read just after: bit-identical to the batch path (labels, cost, picked
+   sample, depth), B3 launched once a graph and the ELL kernel never, with
+   the wall time, the host split (cProfile), device events and blocking
+   syncs per graph and the card's busy share, against the port's earlier
+   path on the same graphs (every sample drawn alone, its MIS one round a
+   host iteration over ``neighbor_min_ell``) in turns A B B A. B1 and B2
+   are then timed at the largest shapes the path gave them, B3 at the
+   largest per-graph graph against that earlier path, B1 and B2 also on
+   the real arrays of the largest bucket, and a breakdown gives host time
+   per layer, the card's busy share and B1's and B2's device time in a
+   traced pass;
 5. LM serving path: smollm-135m at full width, f32 weights from a
    ``torch.Generator`` seeded with ``--seed``, serving 8 requests (4 with
    4–23-token prompts, 4 with 512–2000, up to 32 new tokens each) through
@@ -51,7 +66,8 @@ Phases, in order; any failure raises and exits non-zero:
    steps; (g) ``repro_torch.launch.serve.run`` on the card. B4 is then
    timed at the longest prefill the path gave it (and against the
    ``--b4-baseline`` source there);
-6. summary: the card line, a ``kernels`` JSON line (B1–B4), and last
+6. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
+   fused kernel, B4), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -76,7 +92,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels.measure import (  # noqa: E402
     B4_SHAPES, B4_TOL, Baseline, FaBaseline, abba_ms, b4_bounds, bound_ms,
     bytes_and_ops, card_line, device_events, device_ms, fmt_ms,
-    kernel_inputs)
+    kernel_inputs, mis_pivot_bytes_and_ops, mis_pivot_inputs)
 
 SOURCE = "src/repro_torch/kernels/csrc/neighbor_min.cu"
 REPLACES = {
@@ -84,6 +100,17 @@ REPLACES = {
     "label_agree_ell_batch": "src/repro/kernels/neighbor_min.py:156",
     "neighbor_min_ell": "src/repro/kernels/neighbor_min.py:49",
 }
+B3_SOURCE = "src/repro_torch/kernels/csrc/mis_pivot.cu"
+# B3's TPU kernel and the round loop around it, which the fused kernel
+# replaces together.
+B3_REPLACES = "src/repro/kernels/neighbor_min.py:49"
+# Fused per-graph PIVOT shapes of phase 3, (graph, n, λ, k): random
+# λ-arboric graphs under the degree cap 12·λ at the per-graph sizes, one
+# above a block's shared memory (the grid route by size), a star whose hub
+# of degree n - 1 the cap leaves out, and one sample.
+B3_SHAPES = [("arboric", 64, 2, 3), ("arboric", 4096, 2, 3),
+             ("arboric", 32768, 2, 3), ("arboric", 60000, 2, 3),
+             ("star", 32768, 1, 3), ("arboric", 4096, 2, 1)]
 B4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 B4_REPLACES = "src/repro/kernels/flash_attention.py:90"
 # The same-run A/B against --b4-baseline covers the B4 shapes from here up.
@@ -95,8 +122,9 @@ B4_AB_MIN_S = 512
 PREFILL_TOL = 1e-3
 DECODE_TOL = 5e-2
 SERVE_CACHE_LEN = 2048          # smollm-135m's published context
-# B1–B3 shapes (B, R, W) of phase 3, covering every route of the launch
-# plan (``neighbor_min.launch_plan``); B3 runs on graph 0 of each, (R, W).
+# ELL kernel shapes (B, R, W) of phase 3, covering every route of the
+# launch plan (``neighbor_min.launch_plan``); ``neighbor_min_ell`` runs on
+# graph 0 of each, (R, W).
 KERNEL_SHAPES = [
     (64, 8, 4),          # l2: under 2 MiB of ELL
     (512, 64, 8),
@@ -109,13 +137,13 @@ KERNEL_SHAPES = [
     (8, 32768, 16),
     (16, 512, 256),      # staged, wide rows: a warp per row
     (16, 4096, 4096),
-    (3, 999, 7),         # odd W: l2 route (int32 loads), B3 too
+    (3, 999, 7),         # odd W: l2 route (int32 loads), one graph too
     (1, 60000, 8),       # state above a block's 227 KB: l2 route
 ]
 # Shapes of the same-run A/B against a baseline kernel source (--baseline):
 # the main path's largest bucket at its three narrow widths, the R = 2^15
-# bucket, the wide shape and B3's largest per-graph shape, (n, W) =
-# (32312, 18); B3 is also timed at the largest shape of this run's path.
+# bucket, the wide shape and the one-graph form's largest shape of the
+# earlier per-graph path, (n, W) = (32312, 18).
 AB_SHAPES = [(768, 4096, 32), (768, 4096, 16), (768, 4096, 8), (8, 32768, 16),
              (16, 4096, 4096), (1, 32312, 18)]
 B1_B2 = ("neighbor_min_ell_batch", "label_agree_ell_batch")
@@ -180,8 +208,8 @@ class KernelBench:
         self.max_err = {name: 0 for name in REPLACES}
 
     def pairs(self, ell, ranks, active, labels, names=tuple(REPLACES)):
-        """(kernel, plain, baseline kernel or None) per wrapper; B3 gets
-        graph 0."""
+        """(kernel, plain, baseline kernel or None) per wrapper;
+        ``neighbor_min_ell`` gets graph 0."""
         nm, ref, base = self.nm, self.ref, self.baseline
         every = {
             "neighbor_min_ell_batch": (
@@ -200,10 +228,12 @@ class KernelBench:
         }
         return {name: every[name] for name in names}
 
-    def run(self, B, R, W, rng, timed=True, ab=False):
-        """Check (and time) every kernel at one (B, R, W); B3 gets graph 0."""
+    def run(self, B, R, W, rng, timed=True, ab=False, names=tuple(REPLACES)):
+        """Check (and time) each named kernel at one (B, R, W);
+        ``neighbor_min_ell`` gets graph 0."""
         inputs = kernel_inputs(B, R, W, rng, self.dev)
-        rows = self.check(self.pairs(*inputs), (B, R, W), timed, ab)
+        rows = self.check(self.pairs(*inputs, names=names), (B, R, W), timed,
+                          ab)
         del inputs
         torch.cuda.empty_cache()
         return rows
@@ -329,6 +359,73 @@ def print_b4_row(row):
     print(line)
 
 
+class MisBench:
+    """Holds kernel B3 (``mis_pivot``) to its plain version on every route
+    that takes a shape and times the route its plan picks."""
+
+    def __init__(self, mp, ref, ptxas):
+        self.mp, self.ref = mp, ref
+        self.ptxas = {r["function"]: r for r in ptxas}
+        self.max_err = 0
+
+    def run(self, g, ranks, eligible, timed=True):
+        mp, ref = self.mp, self.ref
+        k, n = ranks.shape
+        args = (g.row_offsets, g.dst, ranks, eligible)
+        want = ref.mis_pivot_ref(*args)
+        routes = []
+        for plan in (mp.block_plan(k, n), mp.grid_plan(k, n)):
+            if plan is None:
+                continue
+            got = mp.mis_pivot_csr(*args, plan=plan)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if a.numel():
+                    self.max_err = max(self.max_err, int(
+                        (a.long() - b.long()).abs().max()))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"mis_pivot ({plan.route} route) "
+                                     f"differs from its plain version at "
+                                     f"(k, n, 2m) = {(k, n, g.dst.numel())}")
+            routes.append(plan.route)
+        plan = mp.mis_launch_plan(k, n)
+        rounds = want[2].tolist()
+        bms, by = bound_ms(*mis_pivot_bytes_and_ops(n, g.dst.numel(), k))
+        regs = self.ptxas.get(f"mis_pivot_{plan.route}", {})
+        row = {"shape": [k, n, g.dst.numel()], "variant": plan.route,
+               "threads": plan.threads, "blocks": plan.blocks,
+               "equal_on": routes, "rounds": rounds, "bound_ms": bms,
+               "bound_by": by, "registers": regs.get("registers"),
+               "spill_bytes": regs.get("spill_stores", 0)
+               + regs.get("spill_loads", 0) if regs else None}
+        if timed:
+            def kernel():
+                return mp.mis_pivot_csr(*args)
+
+            def plain():
+                return ref.mis_pivot_ref(*args)
+            row["call_ms"] = time_ms(kernel)
+            row["ms"] = device_ms(kernel)
+            row["plain_ms"] = device_ms(plain, calls=3)
+        return row
+
+
+def print_b3_row(row):
+    line = (f"  mis_pivot (k, n, 2m) {str(tuple(row['shape'])):22s} "
+            f"{row['variant']:5s} ({row['threads']} threads x "
+            f"{row['blocks']} blocks; {row['registers']} registers, spill "
+            f"{row['spill_bytes']} B) equal on {'+'.join(row['equal_on'])};"
+            f" rounds {row['rounds']}; device ms: kernel "
+            f"{fmt_ms(row.get('ms'))}, plain {fmt_ms(row.get('plain_ms'))}, "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}); per call back "
+            f"to back: kernel {fmt_ms(row.get('call_ms'))}")
+    if "host_loop_ms" in row:
+        line += (f"; the earlier host loop on the same ranks: device "
+                 f"{fmt_ms(row['host_loop_ms'])}, per call "
+                 f"{fmt_ms(row['host_loop_call_ms'])}")
+    print(line)
+
+
 def print_row(name, row):
     line = (f"  {name:24s} {str(tuple(row['shape'])):20s} {row['variant']:6s}"
             f" equal; device ms: kernel {fmt_ms(row.get('ms'))}, plain "
@@ -363,7 +460,7 @@ def main_path(graphs, lams, rng, dev, card, n_oracle=256, n_per_graph=32):
     """Drive the batch path twice and check it; returns the record."""
     from repro_torch.core import api, batch, mis
     from repro_torch.core import rng as trng
-    from repro_torch.core.degree_cap import degree_threshold
+    from repro_torch.core.degree_cap import high_degree
     from repro_torch.core.graph import build_graph
     from repro_torch.kernels import neighbor_min as nm
 
@@ -407,7 +504,7 @@ def main_path(graphs, lams, rng, dev, card, n_oracle=256, n_per_graph=32):
         small, min(n_oracle, len(small)), replace=False).tolist()))
     for gi in sample:
         g, res = graphs[gi], warm[gi]
-        eligible = g.deg.cpu().numpy() <= degree_threshold(lams[gi], 2.0)
+        eligible = ~high_degree(g, lams[gi])[0].cpu().numpy()
         und = g.undirected_edges()
         kept = und[eligible[und[:, 0]] & eligible[und[:, 1]]]
         key = api.sample_keys(keys[gi], 3)[res.info["picked_sample"]]
@@ -426,34 +523,172 @@ def main_path(graphs, lams, rng, dev, card, n_oracle=256, n_per_graph=32):
     print(f"  (c) {len(graphs)} costs equal the host count")
     # (d) per-graph engine on the same device, which runs kernel B3.
     per_graph = small[: n_per_graph - 1] + big[-1:]
-    nm.reset_launch_counts()
-    t0 = time.perf_counter()
-    for gi in per_graph:
-        single = api.correlation_cluster(graphs[gi], key=keys[gi],
-                                         lam=lams[gi], num_samples=3,
-                                         device=dev)
-        res = warm[gi]
-        if not ((single.labels == res.labels).all()
-                and single.cost == res.cost
-                and single.info["picked_sample"] == res.info["picked_sample"]
-                and single.info["depth"] == res.info["depth"]):
-            raise AssertionError(f"(d) graph {gi}: per-graph path differs")
-    per_graph_s = time.perf_counter() - t0
-    graph_launches = dict(nm.launches)
-    if dev.type == "cuda" and graph_launches["neighbor_min_ell"] <= 0:
-        raise AssertionError("(d) the per-graph path never launched B3")
-    print(f"  (d) {len(per_graph)} graphs equal per-graph "
-          f"correlation_cluster ({per_graph_s:.2f} s); "
-          f"launches {graph_launches}")
     record = {
         "graphs": len(graphs), "cold_s": cold_s, "warm_s": warm_s,
         "graphs_per_s": len(graphs) / warm_s,
         "rounds_p50": float(np.median(depth)), "rounds_max": int(depth.max()),
         "buckets": [list(x) for x in stats.bucket_shapes],
-        "launches": batch_launches, "per_graph_s": per_graph_s,
-        "per_graph_launches": graph_launches}
-    return {"record": record, "stats": stats,
-            "per_graph": [graphs[gi] for gi in per_graph]}
+        "launches": batch_launches,
+        "per_graph": per_graph_phase(graphs, keys, lams, warm, per_graph,
+                                     dev, card)}
+    return {"record": record, "stats": stats, "per_graph": per_graph,
+            "keys": keys}
+
+
+def host_loop_cluster(g, key, lam, num_samples):
+    """Per-graph ``correlation_cluster(method='pivot')`` as the port ran it
+    before B3 was fused: per sample its own rank draw, the MIS one round a
+    host iteration (``mis._greedy_mis_host_loop``: the ELL neighbour-min,
+    the removal and a blocking test), the capture and the copies to the
+    host; the same cost and first-minimum selection. Returns (cost, labels,
+    depth, picked)."""
+    from repro_torch.core import api, mis
+    from repro_torch.core.cost import clustering_cost
+    from repro_torch.core.degree_cap import high_degree
+
+    best = None
+    own = torch.arange(g.n, dtype=torch.int32, device=g.device)
+    for i, k in enumerate(api.sample_keys(key, num_samples)):
+        high = high_degree(g, lam)[0]
+        ranks = mis.random_permutation_ranks(g.n, k, device=g.device)
+        state = mis._greedy_mis_host_loop(g, ranks, eligible=~high)
+        in_mis = state.status == mis.IN_MIS
+        labels = mis.assign_to_min_rank_mis_neighbor(g, ranks, in_mis)
+        labels = torch.where(~high, labels, own).cpu().numpy()
+        in_mis.cpu().numpy(), high.cpu().numpy()
+        cost = clustering_cost(g, labels)
+        if best is None or cost < best[0]:
+            best = (cost, labels, state.rounds, i)
+    return best
+
+
+def host_loop_capture(g, ranks, eligible):
+    """The MIS and capture of each sample's ranks by the earlier host loop:
+    (labels, rounds) per sample, for B3's A/B on the same inputs."""
+    from repro_torch.core import mis
+
+    out = []
+    own = torch.arange(g.n, dtype=torch.int32, device=g.device)
+    for r in ranks:
+        state = mis._greedy_mis_host_loop(g, r, eligible=eligible)
+        labels = mis.assign_to_min_rank_mis_neighbor(
+            g, r, state.status == mis.IN_MIS)
+        out.append((torch.where(eligible, labels, own), state.rounds))
+    return out
+
+
+def count_syncs(fn):
+    """Blocking host syncs ``fn`` makes, as PyTorch's sync debug mode
+    reports them (copies to the host, ``.item()``, ``nonzero``, ...)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+# Functions of the per-graph path, for its host-time split.
+PER_GRAPH_LAYERS = ("correlation_cluster", "_pivot_samples",
+                    "permutation_batch", "mis_pivot_csr", "clustering_cost")
+
+
+def per_graph_phase(graphs, keys, lams, warm, idx, dev, card):
+    """(d) Per-graph ``correlation_cluster`` on the graphs ``idx``, its
+    counts zeroed just before and read just after, against the batch
+    path's results ``warm`` and against the earlier host-loop path on the
+    same graphs (walls in turns A B B A); its host split, device events,
+    blocking syncs and the card's busy share."""
+    import cProfile
+    import pstats
+
+    from repro_torch.core import api
+    from repro_torch.kernels import mis_pivot as mp
+    from repro_torch.kernels import neighbor_min as nm
+
+    def fused():
+        return [api.correlation_cluster(graphs[gi], key=keys[gi],
+                                        lam=lams[gi], num_samples=3,
+                                        device=dev) for gi in idx]
+
+    def host_loop():
+        return [host_loop_cluster(graphs[gi], keys[gi], lams[gi], 3)
+                for gi in idx]
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    nm.reset_launch_counts()
+    mp.reset_launch_counts()
+    out, wall = timed(fused)
+    launches = {**nm.launches, **mp.launches}
+    for gi, single in zip(idx, out):
+        res = warm[gi]
+        if not ((single.labels == res.labels).all()
+                and single.cost == res.cost
+                and single.info["picked_sample"] == res.info["picked_sample"]
+                and single.info["depth"] == res.info["depth"]):
+            raise AssertionError(f"(d) graph {gi}: per-graph path differs "
+                                 "from the batch path")
+    if dev.type == "cuda" and (launches["mis_pivot"] != len(idx)
+                               or launches["neighbor_min_ell"] != 0):
+        raise AssertionError(f"(d) {len(idx)} graphs launched {launches}: "
+                             "B3 once a graph and no ELL kernel expected")
+    for gi, single, old in zip(idx, out, host_loop()):
+        cost, labels, depth, picked = old
+        if not ((labels == single.labels).all() and cost == single.cost
+                and picked == single.info["picked_sample"]
+                and depth == single.info["depth"]):
+            raise AssertionError(f"(d) graph {gi}: the host-loop path "
+                                 "differs from the fused one")
+    print(f"  (d) {len(idx)} graphs equal the batch path through per-graph "
+          f"correlation_cluster ({wall:.3f} s) and the earlier host loop; "
+          f"launches {launches}  [{card}]")
+    walls = {"fused": [], "host_loop": []}
+    for name in ("fused", "host_loop", "host_loop", "fused"):
+        walls[name].append(timed(fused if name == "fused" else host_loop)[1])
+    print(f"      wall A B B A, fused {walls['fused'][0]:.3f} / "
+          f"{walls['fused'][1]:.3f} s, host loop {walls['host_loop'][0]:.3f}"
+          f" / {walls['host_loop'][1]:.3f} s  [{card}]")
+    prof = cProfile.Profile()
+    sync(dev)
+    prof.runcall(fused)
+    sync(dev)
+    split = {name: 0.0 for name in PER_GRAPH_LAYERS}
+    for (path, _, func), (_, _, _, cum, _) in pstats.Stats(prof).stats.items():
+        if "repro_torch" in path and func in split:
+            split[func] += cum / len(idx) * 1e3
+    print("      host ms per graph under cProfile: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    record = {"graphs": len(idx), "wall_s": wall, "walls_abba_s": walls,
+              "launches": launches, "host_ms_per_graph": split}
+    if dev.type != "cuda":
+        return record
+    for name, fn in (("fused", fused), ("host_loop", host_loop)):
+        t0 = time.perf_counter()
+        events = device_events(fn)
+        traced = time.perf_counter() - t0
+        syncs = count_syncs(fn)
+        busy = sum(us for _, us in events) / 1e6 if events else None
+        record[name] = {
+            "device_events_per_graph": len(events or []) / len(idx),
+            "syncs_per_graph": syncs / len(idx), "traced_wall_s": traced,
+            "device_busy_s": busy}
+        print(f"      {name}: {len(events or []) / len(idx):.1f} device "
+              f"events and {syncs / len(idx):.2f} blocking syncs per graph; "
+              + ("device busy not measured" if busy is None else
+                 f"device busy {busy * 1e3:.3f} ms of {traced * 1e3:.1f} ms"
+                 f" traced wall ({100 * busy / traced:.2f} %)")
+              + f"  [{card}]")
+    return record
 
 
 # Layers of the batch path, by function, for the host-time breakdown.
@@ -841,7 +1076,8 @@ def main() -> int:
                         help="also write the full record as JSON here")
     parser.add_argument("--baseline", type=Path, default=None,
                         help="another csrc/neighbor_min.cu, built and timed "
-                        "beside B1-B3 on the same inputs; its C entries "
+                        "beside B1, B2 and their one-graph form on the "
+                        "same inputs; its C entries "
                         "must take no launch plan or this checkout's (see "
                         "measure.bind_baseline)")
     parser.add_argument("--b4-baseline", type=Path, default=None,
@@ -854,9 +1090,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.core.graph import build_graph, random_arboric
+    from repro_torch.core import api, mis
+    from repro_torch.core.degree_cap import high_degree
+    from repro_torch.core.graph import build_graph, random_arboric, star
     from repro_torch.kernels import _build, flash_attention as fa
-    from repro_torch.kernels import neighbor_min as nm, ref
+    from repro_torch.kernels import mis_pivot, neighbor_min as nm, ref
     from repro_torch.models import build_model
 
     # Full f32 in every matrix product and convolution: TF32 keeps about
@@ -914,6 +1152,16 @@ def main() -> int:
             record["ab_shapes"].append(rows)
             for name, row in rows.items():
                 print_row(name, row)
+    b3bench = MisBench(mis_pivot, ref, record["ptxas"].get("mis_pivot", []))
+    record["b3_shapes"] = []
+    for graph, n, lam, k in B3_SHAPES:
+        row = b3bench.run(*mis_pivot_inputs(
+            n, k, lam, rng, dev, capped=True,
+            edges=star(n) if graph == "star" else None))
+        row["graph"] = graph
+        record["b3_shapes"].append(row)
+        print_b3_row(row)
+        torch.cuda.empty_cache()
     abench = AttentionBench(fa, ref, dev, fa_base)
     record["b4_shapes"] = []
     if fa_base is not None:
@@ -931,34 +1179,61 @@ def main() -> int:
     graphs, lams = main_path_workload(wrng, build_graph, random_arboric, dev)
     print(f"main path: {len(graphs)} graphs built on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    mp = main_path(graphs, lams, wrng, dev, card)
-    record["main_path"] = mp["record"]
-    stats, per_graph = mp["stats"], mp["per_graph"]
-    batch_launches = mp["record"]["launches"]
-    graph_launches = mp["record"]["per_graph_launches"]
+    path = main_path(graphs, lams, wrng, dev, card)
+    record["main_path"] = path["record"]
+    stats, per_graph = path["stats"], path["per_graph"]
+    batch_launches = path["record"]["launches"]
+    graph_launches = path["record"]["per_graph"]["launches"]
 
-    # Each kernel timed at the largest shape the main path gave it.
+    # B1 and B2 timed at the largest bucket shape the main path gave them.
     R, W, B = max(stats.bucket_shapes, key=lambda s: s[0] * s[1] * s[2])
-    big = max(per_graph, key=lambda g: g.n)
-    main_rows = bench.run(B, R, W, rng, ab=True)
-    b3 = bench.run(1, big.n, max(1, big.max_degree()), rng, ab=True)
-    main_rows["neighbor_min_ell"] = b3["neighbor_min_ell"]
+    main_rows = bench.run(B, R, W, rng, ab=True, names=B1_B2)
     print("kernels at the largest shapes the main path gave them:")
     for name, row in main_rows.items():
         print_row(name, row)
-    launches = {**batch_launches,
-                "neighbor_min_ell": graph_launches["neighbor_min_ell"]}
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": batch_launches[name],
             "max_abs_err": bench.max_err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"], "call_ms": row["call_ms"],
             "variant": row["variant"],
             **{k: row[k] for k in ("ab_ms", "baseline_ms") if k in row}})
+    # B3 on the largest graph of (d), its real keys and degree cap, and the
+    # earlier host loop on the same ranks.
+    gi = max(per_graph, key=lambda i: graphs[i].n)
+    g = graphs[gi]
+    ranks = mis.random_permutation_ranks_batch(
+        g.n, api.sample_keys(path["keys"][gi], 3), device=dev)
+    eligible = ~high_degree(g, lams[gi])[0]
+    b3 = b3bench.run(g, ranks, eligible)
+    kernel_out = mis_pivot.mis_pivot_csr(g.row_offsets, g.dst, ranks,
+                                         eligible)
+    for s_, (labels, rounds) in enumerate(host_loop_capture(g, ranks,
+                                                            eligible)):
+        if not (torch.equal(labels, kernel_out[1][s_])
+                and rounds == int(kernel_out[2][s_])):
+            raise AssertionError("B3 and the earlier host loop differ on the "
+                                 "largest per-graph graph")
+    b3["host_loop_ms"] = device_ms(
+        lambda: host_loop_capture(g, ranks, eligible), calls=3)
+    b3["host_loop_call_ms"] = time_ms(
+        lambda: host_loop_capture(g, ranks, eligible), calls=3, samples=3)
+    print_b3_row(b3)
+    kernels.append({
+        "name": "mis_pivot", "route": "cuda", "source": B3_SOURCE,
+        "replaces": B3_REPLACES, "launches": graph_launches["mis_pivot"],
+        "max_abs_err": b3bench.max_err, "ms": b3["ms"],
+        "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
+        "bound_by": b3["bound_by"], "library_ms": None,
+        "shape": b3["shape"], "call_ms": b3["call_ms"],
+        "variant": b3["variant"], "rounds": b3["rounds"],
+        "host_loop_ms": b3["host_loop_ms"],
+        "host_loop_call_ms": b3["host_loop_call_ms"]})
+    del g, ranks, eligible, kernel_out
     record["breakdown"] = breakdown(graphs, lams, card, nm)
     real = real_bucket_rows(bench, record["breakdown"].pop("largest"))
     print("B1 and B2 on the real arrays of the largest bucket the pass "
@@ -969,7 +1244,7 @@ def main() -> int:
               + (f", active share {row['active_share']:.4f}"
                  if "active_share" in row else ""))
     record["real_bucket"] = real
-    del graphs, per_graph, mp, stats
+    del graphs, per_graph, path, stats
     torch.cuda.empty_cache()
 
     # 5. LM serving path: smollm-135m at full width, f32, random weights.

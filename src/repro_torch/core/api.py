@@ -23,9 +23,9 @@ from repro_torch.util import DeviceLike, resolve_device
 from . import rng as _rng
 from .arboricity import arboricity_bounds
 from .cost import clustering_cost
-from .degree_cap import degree_capped_pivot
+from .degree_cap import high_degree
 from .graph import Graph, build_graph
-from .pivot import pivot
+from .pivot import _pivot_samples
 
 # Reference methods not ported yet, and the ROADMAP item that ports them.
 NOT_PORTED = {
@@ -105,29 +105,23 @@ def correlation_cluster(
         lam = hi  # degeneracy upper bound; only moves the O(λ/ε) constant
         info["lambda_estimate"] = (lo, hi)
 
-    def run_once(k):
-        if method == "pivot_raw":
-            res = pivot(g, k, engine="rounds")
-            return res.labels, {"depth": res.depth}
-        res = degree_capped_pivot(g, lam=lam, key=k, eps=eps)
-        return res.labels, {
-            "threshold": res.threshold,
-            "high_degree": int(res.high_mask.sum()),
-            "depth": res.inner.depth,
-        }
+    # Every sample's PIVOT in one batched rank draw and one kernel launch.
+    keys = sample_keys(key, num_samples)
+    if method == "pivot_raw":
+        labels_k, _, depth = _pivot_samples(g, keys)
+        run_info = {}
+    else:   # Theorem 26: vertices above the degree threshold stay alone
+        high, thresh = high_degree(g, lam, eps)
+        labels_k, _, depth = _pivot_samples(g, keys, eligible=~high)
+        run_info = {"threshold": thresh, "high_degree": int(high.sum())}
 
-    best = None
-    for i, k in enumerate(sample_keys(key, num_samples)):
-        labels_i, info_i = run_once(k)
-        cost_i = clustering_cost(g, labels_i)
-        if best is None or cost_i < best[0]:
-            best = (cost_i, labels_i, info_i, i)
-    cost, labels, run_info, picked = best
-    info.update(run_info)
+    costs = [clustering_cost(g, labels_i) for labels_i in labels_k]
+    picked = costs.index(min(costs))        # the first minimum wins
+    info.update(run_info, depth=int(depth[picked]))
     if num_samples > 1:
         info.update(num_samples=num_samples, picked_sample=picked)
-    return ClusterResult(labels=np.asarray(labels), cost=cost, method=method,
-                         info=info)
+    return ClusterResult(labels=np.asarray(labels_k[picked]),
+                         cost=costs[picked], method=method, info=info)
 
 
 # Batched multi-graph engine (see core/batch.py). Imported at the bottom:

@@ -21,6 +21,15 @@ def degree_threshold(lam: int, eps: float) -> float:
     return 8.0 * (1.0 + eps) / eps * lam
 
 
+def high_degree(g: Graph, lam: int, eps: float = 2.0):
+    """Theorem 26's cut of ``g``: ``(high, threshold)``, where ``high`` is
+    the bool mask, on ``g``'s device, of the vertices whose positive degree
+    exceeds :func:`degree_threshold`. They stay singletons; PIVOT runs on
+    the others."""
+    thresh = degree_threshold(lam, eps)
+    return g.deg > thresh, thresh
+
+
 @dataclasses.dataclass
 class CappedResult:
     labels: np.ndarray
@@ -35,11 +44,11 @@ def degree_capped_pivot(g: Graph, lam: int, key, eps: float = 2.0,
     if engine == "phased":
         raise NotImplementedError(
             "engine='phased' (Algorithm 1) is not ported yet: ROADMAP A14")
-    thresh = degree_threshold(lam, eps)
-    high_t = g.deg > thresh
+    high_t, thresh = high_degree(g, lam, eps)
     res = pivot(g, key, engine=engine, eligible=~high_t)
     return CappedResult(labels=res.labels, high_mask=high_t.cpu().numpy(),
                         threshold=thresh, inner=res)
 
 
-__all__ = ["degree_threshold", "CappedResult", "degree_capped_pivot"]
+__all__ = ["degree_threshold", "high_degree", "CappedResult",
+           "degree_capped_pivot"]

@@ -11,11 +11,17 @@ PIVOT's cluster assignment (each removed vertex joins the *first* pivot in
 π-order among its neighbours) is "min-rank MIS neighbour", computed in one
 post-pass (:func:`assign_to_min_rank_mis_neighbor`).
 
-The per-round hot loop, every undecided vertex taking the min rank over its
-undecided neighbours, is :func:`neighbor_min_ranks`. It always goes through
-the ELL kernel wrapper :func:`repro_torch.kernels.neighbor_min.
-neighbor_min_ell` (kernel B3): the hand-written CUDA kernel for a graph on
-the card, its plain version for a graph on the CPU.
+:func:`greedy_mis_parallel` runs every round, and the capture with them, in
+one call of :func:`repro_torch.kernels.mis_pivot.mis_pivot_csr` (kernel B3):
+one launch of the hand-written CUDA kernel for a graph on the card, its
+plain version for a graph on the CPU. The private
+:func:`_greedy_mis_host_loop` is the same MIS one round at a time from the
+host, each round's neighbour-min through :func:`neighbor_min_ranks` and the
+ELL kernel wrapper :func:`repro_torch.kernels.neighbor_min.neighbor_min_ell`:
+the port's earlier per-graph path, which no package code calls. It exists
+only as the yardstick that ``chip_smoke.py`` times the fused kernel against
+in the same run; it goes, with :func:`_mis_round`, once that A/B is no
+longer wanted.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import mis_pivot as _mp
 from repro_torch.kernels import neighbor_min as _nm
 from repro_torch.util import resolve_device
 
@@ -151,20 +158,40 @@ def _mis_round(g: Graph, ranks: torch.Tensor, status: torch.Tensor,
     return torch.where(hit, torch.full_like(status, REMOVED), status)
 
 
+def _eligible(g: Graph, eligible: Optional[torch.Tensor]) -> torch.Tensor:
+    """The bool mask on ``g``'s device that the kernels take; every vertex
+    where ``eligible`` is None."""
+    if eligible is None:
+        return torch.ones((g.n,), dtype=torch.bool, device=g.device)
+    return eligible.to(device=g.device, dtype=torch.bool).contiguous()
+
+
 def greedy_mis_parallel(g: Graph, ranks: torch.Tensor,
                         eligible: Optional[torch.Tensor] = None) -> MISState:
     """Round-parallel greedy MIS, rounds run until no vertex is undecided.
 
     ``eligible`` restricts the instance to an induced subgraph (the
     Theorem 26 degree cap); ineligible vertices start REMOVED and never
-    take part. ``rounds`` is the dependency depth actually realized.
+    take part. ``rounds`` is the dependency depth actually realized. Every
+    round runs in one call of kernel B3 (one launch on the card).
     """
-    n = g.n
-    dev = g.device
-    ranks = ranks.to(device=dev, dtype=torch.int32)
-    if eligible is None:
-        eligible = torch.ones((n,), dtype=torch.bool, device=dev)
-    eligible = eligible.to(device=dev, dtype=torch.bool)
+    ranks = ranks.to(device=g.device, dtype=torch.int32).reshape(1, g.n)
+    status, _, rounds = _mp.mis_pivot_csr(g.row_offsets, g.dst,
+                                          ranks.contiguous(),
+                                          _eligible(g, eligible))
+    return MISState(status=status[0], rounds=int(rounds[0]))
+
+
+def _greedy_mis_host_loop(g: Graph, ranks: torch.Tensor,
+                          eligible: Optional[torch.Tensor] = None
+                          ) -> MISState:
+    """:func:`greedy_mis_parallel` one round at a time from the host: a
+    :func:`_mis_round` (the ELL neighbour-min of
+    :func:`neighbor_min_ranks`, then the removal) and a blocking test for
+    undecided vertices per round. Only ``chip_smoke.py``'s same-run A/B
+    against the earlier per-graph path calls it; the package does not."""
+    ranks = ranks.to(device=g.device, dtype=torch.int32)
+    eligible = _eligible(g, eligible)
     status = torch.where(eligible, UNDECIDED, REMOVED).to(torch.int32)
     ell = _nm.ell_from_graph(g)        # loop-invariant
     rounds = 0

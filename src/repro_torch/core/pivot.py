@@ -13,18 +13,20 @@ each MIS vertex (pivot) captures its surviving positive neighbours; a
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.mis_pivot import mis_pivot_csr
+
 from .graph import Graph
 from .mis import (
     IN_MIS,
-    assign_to_min_rank_mis_neighbor,
-    greedy_mis_parallel,
+    _eligible,
     pivot_sequential,
     random_permutation_ranks,
+    random_permutation_ranks_batch,
 )
 
 
@@ -35,6 +37,27 @@ class PivotResult:
     depth: int                   # realized parallel dependency depth
 
 
+def _pivot_samples(g: Graph, keys: Sequence,
+                   eligible: Optional[torch.Tensor] = None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """PIVOT of one graph under each of ``keys``, on ``g``'s device:
+    ``(labels (k, n), in_mis (k, n), depth (k,))`` as host arrays.
+
+    The k rank rows come from one batched draw, every MIS round and the
+    capture of all k samples from one call of kernel B3, and the results
+    from one copy to the host.
+    """
+    n, k = g.n, len(keys)
+    ranks = random_permutation_ranks_batch(n, keys, device=g.device)
+    status, labels, rounds = mis_pivot_csr(g.row_offsets, g.dst, ranks,
+                                           _eligible(g, eligible))
+    host = torch.cat([labels.reshape(-1), status.reshape(-1),
+                      rounds]).cpu().numpy()
+    return (host[:k * n].reshape(k, n),
+            host[k * n:2 * k * n].reshape(k, n) == IN_MIS,
+            host[2 * k * n:])
+
+
 def pivot(g: Graph, key, engine: str = "rounds",
           eligible: Optional[torch.Tensor] = None) -> PivotResult:
     """Run PIVOT on the positive graph ``g``, on ``g``'s device.
@@ -43,11 +66,10 @@ def pivot(g: Graph, key, engine: str = "rounds",
     ineligible vertices come back as singletons labelled by their own id.
     """
     n = g.n
-    ranks = random_permutation_ranks(n, key, device=g.device)
-
     if engine == "sequential":
         if eligible is not None:
             raise ValueError("sequential engine does not support eligible mask")
+        ranks = random_permutation_ranks(n, key, device=g.device)
         labels = pivot_sequential(g, ranks.cpu().numpy())
         in_mis = labels == np.arange(n)
         return PivotResult(labels=labels, in_mis=in_mis, depth=-1)
@@ -58,14 +80,9 @@ def pivot(g: Graph, key, engine: str = "rounds",
     if engine != "rounds":
         raise ValueError(f"unknown engine {engine!r}")
 
-    state = greedy_mis_parallel(g, ranks, eligible=eligible)
-    in_mis = state.status == IN_MIS
-    labels = assign_to_min_rank_mis_neighbor(g, ranks, in_mis)
-    if eligible is not None:
-        own = torch.arange(n, dtype=torch.int32, device=g.device)
-        labels = torch.where(eligible.to(g.device), labels, own)
-    return PivotResult(labels=labels.cpu().numpy(),
-                       in_mis=in_mis.cpu().numpy(), depth=state.rounds)
+    labels, in_mis, depth = _pivot_samples(g, [key], eligible)
+    return PivotResult(labels=labels[0], in_mis=in_mis[0],
+                       depth=int(depth[0]))
 
 
 __all__ = ["PivotResult", "pivot"]

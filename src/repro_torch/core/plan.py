@@ -38,7 +38,7 @@ import numpy as np
 from repro_torch.util import next_pow2
 
 from .arboricity import arboricity_bounds
-from .degree_cap import degree_threshold
+from .degree_cap import high_degree
 from .graph import Graph
 from .mis import random_permutation_ranks_batch
 
@@ -104,12 +104,11 @@ def plan_graph(g: Graph, method: str = "pivot", eps: float = 2.0,
 
     spec = method_spec(method)
     n = g.n
-    deg = g.deg.cpu().numpy()
     if spec.degree_cap:
         if lam is None:
             _, lam = arboricity_bounds(g, exact=n <= 200_000)
-        threshold = degree_threshold(lam, eps)
-        eligible = ~(deg > threshold)
+        high, threshold = high_degree(g, lam, eps)
+        eligible = ~high.cpu().numpy()
     else:
         lam, threshold = None, None
         eligible = np.ones(n, dtype=bool)

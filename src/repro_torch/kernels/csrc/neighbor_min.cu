@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/neighbor_min.py:
 //   neighbor_min_ell_batch (B1)  -> nm_neighbor_min
-//   neighbor_min_ell       (B3)  -> nm_neighbor_min with B = 1
+//   neighbor_min_ell       (B3)  -> nm_neighbor_min with B = 1, the round
+//                                   step of the one-graph host loop (the
+//                                   per-graph path runs mis_pivot.cu)
 //   label_agree_ell_batch  (B2)  -> nm_label_agree
 //
 // Both kernels walk a (B, R, W) int32 ELL adjacency (pad id R) and gather
@@ -42,7 +44,7 @@
 //    so the state may start anywhere; only the ELL must be 16-byte
 //    aligned), so the two overlap. Wide rows (W > 128) give each warp a
 //    row and its lanes loop over it.
-//  * l2: rows that are not 16-byte aligned (the per-graph B3 path, whose W
+//  * l2: rows that are not 16-byte aligned (the one-graph form, whose W
 //    is the raw max degree), state above 227 KB, launches too small to
 //    repay staging, and a few long graphs spread over many blocks. A group
 //    of pow2(W) lanes (up to a warp) owns a row, reads it as int32 and

@@ -1,9 +1,11 @@
 """Timing and same-run A/B helpers for the kernels on the card.
 
-Shared by ``chip_smoke.py``, ``scripts/ell_route_sweep.py`` and
-``scripts/attention_sweep.py``: the card's name and power limit, device
-time per call from the profiler, the byte and operation bound, the random
-bucket inputs B1–B3 time on, B4's shapes, tolerances and bounds,
+Shared by ``chip_smoke.py``, ``scripts/ell_route_sweep.py``,
+``scripts/mis_route_sweep.py`` and ``scripts/attention_sweep.py``: the
+card's name and power limit, device time per call from the profiler, the
+byte and operation bound, the random bucket inputs of the ELL kernels, the
+random graphs and the byte count of the fused per-graph PIVOT (B3), B4's
+shapes, tolerances and bounds,
 :class:`Baseline`, an earlier ``neighbor_min.cu`` built and called beside
 the current one, and :class:`FaBaseline`, the same for
 ``flash_attention.cu`` (B4). Nothing here touches the card or ``nvcc`` at
@@ -169,6 +171,41 @@ def bytes_and_ops(name, B, R, W):
     if name == "label_agree_ell_batch":
         return 4 * slots + 4 * state + 4 * B * R, 3 * slots
     return 4 * slots + 5 * state + 4 * B * R, 3 * slots
+
+
+def mis_pivot_bytes_and_ops(n: int, ids: int, k: int):
+    """Bytes and operations kernel B3 (``mis_pivot``) must move and do for
+    ``k`` samples of one graph of ``n`` vertices and ``ids`` = 2m neighbour
+    ids: the offsets and the ids read once (the samples share them), the
+    ranks and the mask read once, status, labels and rounds written once;
+    one compare a neighbour id a sample. The rounds' passes over the CSR
+    and the state are the kernel's way of computing the function, not
+    bytes the function must move: the state stays on chip (shared memory
+    on the block route, L2 on the grid route), so they are not charged."""
+    return (4 * (n + 2) + 4 * ids + 4 * k * n + n + 8 * k * n + 4 * k,
+            k * ids)
+
+
+def mis_pivot_inputs(n: int, k: int, lam: int, rng, dev, capped=False,
+                     edges=None):
+    """A graph of ``n`` vertices on ``dev`` (``edges``, by default a random
+    ``lam``-arboric one from ``rng``), ``k`` random rank permutations and
+    the eligibility, ``capped``: the per-graph path's degree cap at λ =
+    ``lam`` (:func:`repro_torch.core.degree_cap.high_degree`), else every
+    vertex: ``(graph, ranks, eligible)``."""
+    from repro_torch.core.degree_cap import high_degree
+    from repro_torch.core.graph import build_graph, random_arboric
+
+    if edges is None:
+        edges = random_arboric(n, lam, rng)[0] if n > 1 \
+            else np.zeros((0, 2), np.int64)
+    g = build_graph(n, edges, device=dev)
+    perms = np.stack([rng.permutation(n) for _ in range(k)]).reshape(k, n)
+    ranks = np.empty_like(perms)
+    np.put_along_axis(ranks, perms, np.arange(n)[None, :], axis=1)
+    eligible = ~high_degree(g, lam)[0] if capped \
+        else torch.ones(n, dtype=torch.bool, device=dev)
+    return g, torch.from_numpy(ranks.astype(np.int32)).to(dev), eligible
 
 
 def bind_baseline(lib) -> int:

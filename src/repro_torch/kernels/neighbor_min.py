@@ -10,9 +10,11 @@ port of the Pallas TPU kernels in ``repro/kernels/neighbor_min.py``:
 * :func:`label_agree_ell_batch` (B2) — per ``(b, r)``, how many neighbours
   carry row ``r``'s label. Summed per graph this is ``2·intra_pos`` of the
   disagreement cost pass.
-* :func:`neighbor_min_ell` (B3) — B1 for one graph, ``(n, W)``; the
-  per-graph engine's round loop. It launches the B1 kernel with ``B = 1``
-  and keeps its own launch count.
+* :func:`neighbor_min_ell` — B1 for one graph, ``(n, W)``: the function of
+  the reference's one-graph kernel (B3), here the round step of the host
+  loop ``core/mis.py`` ``_greedy_mis_host_loop``. It launches the B1 kernel
+  with ``B = 1`` and keeps its own launch count. The per-graph path runs
+  B3 redesigned instead, every round in one launch (:mod:`.mis_pivot`).
 
 Contract (the reference's pad layout): ``ell`` is int32 with pad id ``R``;
 the state rows have width ``S = R + 1`` and slot ``R`` is the pad slot
@@ -47,7 +49,7 @@ SMEM_BYTES_MAX = 232_448    # dynamic shared memory a block may use (sm_90)
 # Measured on an H100 (PERF.md): below about 2 MiB of ELL a launch
 # is bound by its latency, and the l2 route's is shorter; and a staged
 # launch that reads more than two state words per ELL word (a few long
-# graphs over many blocks, as in the per-graph B3 path) loses to l2.
+# graphs over many blocks, as in the one-graph host loop) loses to l2.
 MIN_STAGED_BYTES = 2 << 20
 STAGE_RATIO = 2.0
 ROUTES = {"l2": 0, "staged": 1}     # the C entry's route codes
@@ -113,7 +115,8 @@ def staged_plan(B: int, R: int, W: int, S: int,
 
 
 def launch_plan(B: int, R: int, W: int, S: int) -> LaunchPlan:
-    """The plan of one B1, B2 or B3 launch: a function of the shape alone.
+    """The plan of one B1, B2 or one-graph launch: a function of the shape
+    alone.
 
     The one-wave :func:`staged_plan` where it can run, except for launches
     under ``MIN_STAGED_BYTES`` of ELL and launches that would stage more
@@ -242,7 +245,7 @@ def neighbor_min_ell_batch(ell: torch.Tensor, ranks_p: torch.Tensor,
 
 def neighbor_min_ell(ell: torch.Tensor, ranks_p: torch.Tensor,
                      active_p: torch.Tensor) -> torch.Tensor:
-    """(n,) int32 masked neighbour-min of one graph (kernel B3).
+    """(n,) int32 masked neighbour-min of one graph (B3's function).
 
     ``ell`` (n, W) int32, ``ranks_p`` (n+1,) int32, ``active_p`` (n+1,)
     bool (see :func:`pad_state`).

@@ -2,9 +2,10 @@
 
 Kept free of ``jax`` and ``repro`` so it runs on a GPU machine that has
 only PyTorch: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-B1–B3 are held to their plain PyTorch versions with ``torch.equal``
-(integer outputs, tolerance 0) and the batch path on the card to the same
-path on the CPU. B4 is held to its plain version within 2e-5 (f32) and
+B1, B2, the ELL neighbour-min of one graph and the fused per-graph
+PIVOT (B3, both launch routes) are held to their plain PyTorch versions
+with ``torch.equal`` (integer outputs, tolerance 0), and the batch and
+per-graph paths on the card to the same paths on the CPU. B4 is held to its plain version within 2e-5 (f32) and
 2e-2 (bf16), the reference's own kernel tolerances (sums in another
 order; a bf16 output may round one unit apart), and the smoke LM's
 prefill on the card to the CPU's within 1e-4 (two f32 layers).
@@ -14,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import PRNGKey, build_graph, correlation_cluster_batch
+from repro_torch.core import (PRNGKey, build_graph, correlation_cluster,
+                              correlation_cluster_batch)
 from repro_torch.configs import get_smoke
-from repro_torch.core.graph import random_arboric
+from repro_torch.core.graph import random_arboric, star
+from repro_torch.core.mis import random_permutation_ranks_batch
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mis_pivot as mp
 from repro_torch.kernels import neighbor_min as nm
 from repro_torch.kernels import ref
 from repro_torch.models import build_model
@@ -134,6 +138,108 @@ def test_cuda_batch_path_equals_cpu(cuda):
     for a, b in zip(out["cpu"], out[str(cuda)]):
         assert (a.labels == b.labels).all()
         assert a.cost == b.cost and a.info == b.info
+
+
+def _mis_edges(name, n):
+    rng = np.random.default_rng(n)
+    if name.startswith("star"):
+        return star(n)
+    return random_arboric(n, 2, rng)[0] if n > 1 else np.zeros((0, 2))
+
+
+# (name, n, k, cap) of the fused per-graph PIVOT: the eligible vertices
+# are those of degree <= cap, all where cap is None, none at -1. No
+# vertex, one, none eligible; a hub of degree n - 1 that a warp walks
+# (uncapped, on both routes and at 40,000 vertices on the grid route)
+# and that the cap leaves out; k = 8; the per-graph path's sizes, one
+# above a block's shared memory, and there k = 65, two grid launches.
+MIS_CASES = [("empty", 0, 3, None), ("single", 1, 2, None),
+             ("ineligible", 300, 3, -1), ("star", 5000, 3, None),
+             ("star_capped", 5000, 3, 12), ("star_big", 40000, 1, None),
+             ("arboric", 64, 8, 24), ("arboric", 4096, 3, 24),
+             ("arboric", 4096, 8, None), ("arboric", 32768, 3, 24),
+             ("arboric", 60000, 3, 24), ("arboric", 50000, 65, 24)]
+MIS_RUNS = [(case, route) for case in MIS_CASES for route in ("block", "grid")
+            if route == "grid" or mp.block_plan(case[2], case[1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,route", MIS_RUNS, ids=str)
+def test_cuda_mis_pivot_equals_plain(cuda, case, route):
+    name, n, k, cap = case
+    g = build_graph(n, _mis_edges(name, n), device=cuda)
+    ranks = random_permutation_ranks_batch(n, [PRNGKey(7 * i + n)
+                                               for i in range(k)],
+                                           device=cuda)
+    eligible = torch.ones(n, dtype=torch.bool, device=cuda) if cap is None \
+        else g.deg <= cap
+    plan = mp.block_plan(k, n) if route == "block" else mp.grid_plan(k, n)
+    mp.reset_launch_counts()
+    got = mp.mis_pivot_csr(g.row_offsets, g.dst, ranks, eligible, plan=plan)
+    want = ref.mis_pivot_ref(g.row_offsets, g.dst, ranks, eligible)
+    torch.cuda.synchronize()
+    assert mp.launches["mis_pivot"] == -(-k // plan.samples)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    if cap == -1:       # every vertex removed from the start, no round
+        assert (got[0] == 2).all() and (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_mis_pivot_rejects_bad_inputs(cuda):
+    g = build_graph(600, random_arboric(600, 2, np.random.default_rng(0))[0],
+                    device=cuda)
+    ranks = random_permutation_ranks_batch(600, [PRNGKey(1), PRNGKey(2)],
+                                           device=cuda)
+    elig = torch.ones(600, dtype=torch.bool, device=cuda)
+    want = ref.mis_pivot_ref(g.row_offsets, g.dst, ranks, elig)
+    # Rows of a larger tensor are contiguous and fine.
+    buf = torch.zeros((3, 600), dtype=torch.int32, device=cuda)
+    buf[1:] = ranks
+    got = mp.mis_pivot_csr(g.row_offsets, g.dst, buf[1:], elig)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    strided = torch.zeros((600, 2), dtype=torch.int32, device=cuda).t()
+    strided.copy_(ranks)
+    for args in [(g.row_offsets, g.dst, strided, elig),      # contiguity
+                 (g.row_offsets, g.dst, ranks, elig.cpu()),  # device
+                 (g.row_offsets.cpu(), g.dst, ranks, elig),
+                 (g.row_offsets, g.dst, ranks.long(), elig),  # dtype
+                 (g.row_offsets, g.dst, ranks, elig.int()),
+                 (g.row_offsets, g.dst, ranks[:, :599], elig),  # shape
+                 (g.row_offsets, g.dst[::2], ranks, elig)]:   # strided ids
+        with pytest.raises(ValueError):
+            mp.mis_pivot_csr(*args)
+    # A plan the kernel cannot run is refused by the C entry, never run:
+    # a grid of more blocks than the card holds at once, too little
+    # shared memory for a block's state, and a block count that is not k.
+    mp.reset_launch_counts()
+    for plan, msg in [(mp.MisPlan("grid", 1024, 100_000, 0, 2),
+                       "cooperative launch"),
+                      (mp.MisPlan("block", 1024, 2, 5 * 600 - 1, 2),
+                       "invalid"),
+                      (mp.MisPlan("block", 1024, 3, 5 * 600, 2), "invalid")]:
+        with pytest.raises(RuntimeError, match=msg):
+            mp.mis_pivot_csr(g.row_offsets, g.dst, ranks, elig, plan=plan)
+    assert mp.launches["mis_pivot"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pivot", "pivot_raw"])
+def test_cuda_correlation_cluster_equals_cpu(cuda, method):
+    rng = np.random.default_rng(3)
+    mp.reset_launch_counts()
+    nm.reset_launch_counts()
+    for n, k in [(7, 1), (300, 3), (4096, 3), (50_000, 2)]:
+        edges = random_arboric(n, 2, rng)[0]
+        out = [correlation_cluster(build_graph(n, edges, device=dev),
+                                   method=method, lam=2, key=PRNGKey(n),
+                                   num_samples=k, device=dev)
+               for dev in ("cpu", cuda)]
+        assert (out[0].labels == out[1].labels).all()
+        assert out[0].cost == out[1].cost and out[0].info == out[1].info
+    # One launch a graph, all samples in it; no ELL kernel on this path.
+    assert mp.launches["mis_pivot"] == 4
+    assert nm.launches["neighbor_min_ell"] == 0
 
 
 @pytest.mark.cuda
