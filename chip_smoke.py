@@ -26,9 +26,12 @@ Phases, in order; any failure raises and exits non-zero:
    plain version with ``torch.equal`` on status, labels and rounds, and the
    planned route timed with its bound, registers and spills; B4
    ``flash_attention`` at the reference's kernel-test shapes, at
-   smollm-135m prefill shapes (S = 24, 512, 2048; f32 and bf16) and at a
-   batch of eight 2048-token prefills, within 2e-5 (f32) / 2e-2 (bf16) of
-   its plain version. Each with kernel and plain device times (profiler),
+   smollm-135m prefill shapes (S = 24, 512, 2048; f32 and bf16), at a
+   batch of eight 2048-token prefills and at 1024-token prefills with head
+   dims 80 and 160, within 2e-5 (f32) / 2e-2 (bf16) of its plain version,
+   and in bf16 with every output in [4.5, 7.5] within 2e-2 of the plain
+   version's f32 output (with ``--b4-baseline``, that source's error there
+   too). Each with kernel and plain device times (profiler),
    per-call times of back-to-back runs (CUDA events) and the bound; B4
    also with ``scaled_dot_product_attention``'s time as the library
    yardstick and, with ``--b4-baseline``, at every shape with S >= 512 an
@@ -53,7 +56,25 @@ Phases, in order; any failure raises and exits non-zero:
    the real arrays of the largest bucket, and a breakdown gives host time
    per layer, the card's busy share and B1's and B2's device time in a
    traced pass;
-5. LM serving path: smollm-135m at full width, f32 weights from a
+5. clustering serving layer: the main path's workload drawn anew (2,056
+   graphs), one arrival trace of 2,467 requests (every graph once, 25 %
+   precluster, plus exact repeats of 20 % of them), k = 3:
+   B1 on the precluster agreement graphs (``agree_ell``) of the bucket
+   packing the most ELL and of the R = 2¹⁵ bucket, on every route of the
+   launch plan that takes the shape, ``torch.equal`` to the plain version,
+   with the agreement pass's peak device memory and its share of the
+   bucket program; then (h) ``serve_all`` through
+   ``ClusterBatcher(executor='async', policy='cost')``, its counts zeroed
+   just before and read just after (B1 and B2 must have launched): every
+   result equal to ``correlation_cluster_batch`` on the card for its
+   graph, key and method, 64 equal to the CPU (precluster against
+   ``precluster_host``), requests/s, flush wall p50/p99, cache hits and
+   single-flight riders; the same trace on the sync executor (walls A B B
+   A against async) and under ``policy='coalesce'``; 256 requests under
+   ``objective='minmax'`` on the async and the sharded (one device)
+   executors, against the batch path; ``submit``'s return time on the
+   R = 2¹⁵ pivot bucket; the card's busy share over a traced pass;
+6. LM serving path: smollm-135m at full width, f32 weights from a
    ``torch.Generator`` seeded with ``--seed``, serving 8 requests (4 with
    4–23-token prompts, 4 with 512–2000, up to 32 new tokens each) through
    ``ContinuousBatcher`` (4 slots, cache_len 2048) and ``serve_all``, with
@@ -66,8 +87,9 @@ Phases, in order; any failure raises and exits non-zero:
    steps; (g) ``repro_torch.launch.serve.run`` on the card. B4 is then
    timed at the longest prefill the path gave it (and against the
    ``--b4-baseline`` source there);
-6. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
-   fused kernel, B4), and last
+7. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
+   fused kernel, B4; B1 also on the agreement graphs, B4 also at head dims
+   80 and 160), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -90,7 +112,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels.measure import (  # noqa: E402
-    B4_SHAPES, B4_TOL, Baseline, FaBaseline, abba_ms, b4_bounds, bound_ms,
+    B4_LARGE_O_SHAPE, B4_SHAPES, B4_TOL, Baseline, FaBaseline, abba_ms,
+    b4_bounds, b4_large_output_check, b4_large_output_inputs, bound_ms,
     bytes_and_ops, card_line, device_events, device_ms, fmt_ms,
     kernel_inputs, mis_pivot_bytes_and_ops, mis_pivot_inputs)
 
@@ -111,10 +134,16 @@ B3_REPLACES = "src/repro/kernels/neighbor_min.py:49"
 B3_SHAPES = [("arboric", 64, 2, 3), ("arboric", 4096, 2, 3),
              ("arboric", 32768, 2, 3), ("arboric", 60000, 2, 3),
              ("star", 32768, 1, 3), ("arboric", 4096, 2, 1)]
+AG_SOURCE = "src/repro_torch/kernels/csrc/agreement.cu"
+# Not a Pallas kernel: the agreement pass of the reference's precluster
+# rounds body, which XLA runs as ops; the kernel takes its place.
+AG_REPLACES = "src/repro/core/programs.py:187"
 B4_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 B4_REPLACES = "src/repro/kernels/flash_attention.py:90"
-# The same-run A/B against --b4-baseline covers the B4 shapes from here up.
+# The same-run A/B against --b4-baseline covers the B4 shapes from here up,
+# at the head dims every earlier source builds.
 B4_AB_MIN_S = 512
+B4_AB_HEAD_DIMS = (16, 32, 64, 128)
 # LM serving against the same model on the CPU: prefill logits after 30
 # f32 layers summed in another order; decode logits after steps whose
 # keys and values went through bf16 caches, where one value rounded to the
@@ -339,6 +368,29 @@ class AttentionBench:
             # each is timed in a profiler session of its own.
             row["ab_ms"], row["baseline_ms"] = abba_ms([kernel, old])
         del q, k, v, got, want
+        torch.cuda.empty_cache()
+        return row
+
+
+    def large_output(self, rng):
+        """bf16 outputs in [4.5, 7.5] (``measure.B4_LARGE_O_SHAPE``), where
+        one bf16 unit is 2^-5: B4 held within 2e-2 of the plain version's
+        f32 output; with a baseline, its error printed beside."""
+        shape = B4_LARGE_O_SHAPE
+        q, k, v, want = b4_large_output_inputs(shape, rng, self.dev)
+        got = self.fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, low = b4_large_output_check(got, want, shape)
+        row = {"shape": list(shape), "max_abs_err": err, "min_abs_out": low}
+        if self.baseline is not None:
+            row["baseline_err"] = float(
+                (self.baseline(q, k, v).float() - want).abs().max())
+        print(f"  flash_attention {str(tuple(shape)):48s} |o| >= "
+              f"{row['min_abs_out']:.3g}: err {err:.3g} against the f32 "
+              f"plain output" + (f", baseline err {row['baseline_err']:.3g}"
+                                 if "baseline_err" in row else ""))
+        self.max_err["bfloat16"] = max(self.max_err["bfloat16"], err)
+        del q, k, v, want, got
         torch.cuda.empty_cache()
         return row
 
@@ -693,7 +745,7 @@ def per_graph_phase(graphs, keys, lams, warm, idx, dev, card):
 
 # Layers of the batch path, by function, for the host-time breakdown.
 LAYERS = ("correlation_cluster_batch", "plan_graph", "pack_bucket",
-          "permutation_batch", "_scatter_ell", "run_bucket_program",
+          "permutation_batch", "_scatter_ell", "_launch",
           "_pivot_rounds_body", "_disagree_cost_pass", "result_for_plan")
 
 
@@ -804,6 +856,407 @@ def breakdown(graphs, lams, card, nm, n_trace=256):
     return result
 
 
+# Serving layer of the clustering path: the traffic of phase 5.
+SERVE_MAX_BATCH = 64
+SERVE_MAX_WAIT = 0.02        # seconds an admitted request may wait
+SERVE_SUBSET = 256           # requests of the minmax and sharded engines
+SERVE_CPU_CHECKS = 64
+# Layers of a serving pass, by function, for its host-time split.
+SERVE_LAYERS = ("admit", "plan_graph", "graph_fingerprint",
+                "build_packed_rows", "permutation_batch", "_execute",
+                "pack_bucket", "_launch", "_harvest")
+
+
+def serving_trace(graphs, lams, rng):
+    """One arrival trace over the workload: every graph once, 25 % of them
+    as precluster requests, keyed by index, plus exact repeats (same graph,
+    key and method) of 20 % of them at later random positions."""
+    rows = [(gi, "precluster" if rng.random() < 0.25 else "pivot")
+            for gi in range(len(graphs))]
+    for gi in rng.choice(len(graphs), len(graphs) // 5, replace=False):
+        pos = int(rng.integers(int(gi) + 1, len(rows) + 1))
+        rows.insert(pos, rows[[r[0] for r in rows].index(int(gi))])
+    return rows
+
+
+def agreement_bytes_and_ops(ell):
+    """Bytes (the ELL read once, the agreement ELL written once) and
+    operations of the agreement kernel's function on these inputs: a
+    membership test and a count for each of the W ids of the neighbour
+    row of every non-pad slot."""
+    B, R, W = ell.shape
+    return 2 * 4 * ell.numel(), 2 * W * int((ell != R).sum())
+
+
+def precluster_kernel_rows(bench, graphs, lams, dev, card):
+    """The precluster agreement pass and B1 on its output, at three buckets
+    of the workload under ``method='precluster'``, k = 3: the one packing
+    the most ELL, the R = 2^15 one, and the one packing the most ELL at
+    W <= 16 (λ = 1 graphs, where edges agree: at λ >= 2 almost none do).
+    The agreement kernel and its plain version, equal by ``torch.equal``,
+    each with its peak device memory and time, and their share of the
+    bucket program; B1 with the first hop's state as its ranks and the
+    eligibility row as its active mask, on the route its launch plan picks
+    and on the other one where that can run, each ``torch.equal`` to the
+    plain version."""
+    from repro_torch.core import api, plan as tplan, programs
+    from repro_torch.core import rng as trng
+    from repro_torch.kernels import agreement as ag
+    from repro_torch.kernels import neighbor_min as nm
+    from repro_torch.kernels import ref
+    from repro_torch.util import next_pow2
+
+    plans = [tplan.plan_graph(g, method="precluster", lam=lam)
+             for g, lam in zip(graphs, lams)]
+    buckets: dict = {}
+    for gi, p in enumerate(plans):
+        buckets.setdefault(p.bucket, []).append(gi)
+
+    def size(b):
+        return b[0] * b[1] * next_pow2(len(buckets[b]))
+
+    picks = {"largest": max(buckets, key=size),
+             "R=2^15": max((b for b in buckets if b[0] == 1 << 15),
+                           key=size),
+             "largest W<=16": max((b for b in buckets if b[1] <= 16),
+                                  key=size)}
+    rows = {}
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    for tag, bucket in picks.items():
+        members = buckets[bucket]
+        ell, ranks, elig, m_edges, _ = tplan.pack_bucket(
+            [plans[gi] for gi in members],
+            [api.sample_keys(trng.PRNGKey(gi), 3) for gi in members], k=3)
+        ell, ranks, elig, m_edges = (torch.from_numpy(a).to(dev) for a in
+                                     (ell, ranks, elig, m_edges))
+        B, R, W = ell.shape
+        want, plain_peak = peak(lambda: ref.agreement_ell_ref(ell))
+        agree_ell, kernel_peak = peak(lambda: ag.agreement_ell_batch(ell))
+        if not torch.equal(agree_ell, want):
+            raise AssertionError(f"the agreement kernel differs from its "
+                                 f"plain version at the {tag} bucket "
+                                 f"{B, R, W}")
+        plain_ms = time_ms(lambda: ref.agreement_ell_ref(ell), calls=1,
+                           samples=3)
+        program_ms = time_ms(lambda: programs.bucket_impl(
+            ell, ranks, elig, m_edges, k=3, program="precluster"), calls=1,
+            samples=3)
+        nbytes, ops = agreement_bytes_and_ops(ell)
+        bms, by = bound_ms(nbytes, ops)
+        ag_row = {"shape": [B, R, W], "equal": True, "bound_ms": bms,
+                  "bound_by": by, "call_ms": time_ms(
+                      lambda: ag.agreement_ell_batch(ell)),
+                  "ms": device_ms(lambda: ag.agreement_ell_batch(ell)),
+                  "plain_call_ms": plain_ms, "peak_bytes": kernel_peak,
+                  "plain_peak_bytes": plain_peak, "program_ms": program_ms,
+                  "variant": f"warp per row, {ag.blocks(B, R)} blocks"}
+        ag_row["plain_ms"] = device_ms(lambda: ref.agreement_ell_ref(ell),
+                                       calls=1)
+        state = torch.where(elig[:, :R], ranks[:, :R], nm.INF)
+        state_p = torch.cat([state, state.new_full((B, 1), nm.INF)], 1)
+        want_b1 = ref.neighbor_min_ref(agree_ell, state_p, elig)
+        routes = []
+        for plan in (nm.launch_plan(B, R, W, R + 1), nm.l2_plan(B, R, W),
+                     nm.staged_plan(B, R, W, R + 1)):
+            if dev.type != "cuda" or plan is None or plan.route in routes:
+                continue
+            out = nm.neighbor_min_ell_batch(agree_ell, state_p, elig,
+                                            plan=plan)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want_b1):
+                raise AssertionError(f"B1 ({plan.route} route) differs from "
+                                     f"its plain version on the {tag} "
+                                     f"precluster agreement graph {B, R, W}")
+            routes.append(plan.route)
+        row = bench.check(bench.pairs(agree_ell, state_p, elig, None,
+                                      names=B1_B2[:1]), (B, R, W))[B1_B2[0]]
+        kept = float((agree_ell != R).sum()) / max(1, int((ell != R).sum()))
+        row.update(bucket=tag, equal_on=routes, kept_edge_share=kept,
+                   agreement=ag_row)
+        rows[tag] = row
+        print_row(f"B1 agree_ell {tag}", row)
+        print(f"    equal on {'+'.join(routes)}; "
+              f"{100 * kept:.4f} % of the ELL's edges agree")
+        print(f"  agreement {str((B, R, W)):28s} equal; device ms: kernel "
+              f"{fmt_ms(ag_row['ms'])}, plain {fmt_ms(ag_row['plain_ms'])}, "
+              f"bound {bms:.4f} ({by}); per call back to back: kernel "
+              f"{fmt_ms(ag_row['call_ms'])}, plain {plain_ms:.3f}; peak "
+              f"memory kernel {kernel_peak / 2**20:.1f} MiB, plain "
+              f"{plain_peak / 2**20:.1f} MiB; the bucket program "
+              f"{program_ms:.3f} ms per call  [{card}]")
+        del ell, ranks, elig, m_edges, agree_ell, want, state, state_p
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _requests(rows, graphs, lams, pick=None):
+    from repro_torch.core import rng as trng
+    from repro_torch.serve import ClusterRequest
+
+    idx = range(len(rows)) if pick is None else pick
+    return [ClusterRequest(uid=i, graph=graphs[rows[i][0]],
+                           key=trng.PRNGKey(rows[i][0]), lam=lams[rows[i][0]],
+                           method=rows[i][1]) for i in idx]
+
+
+def serve_pass(rows, graphs, lams, dev, pick=None, **engine):
+    """Serve the trace (or the ``pick`` subset) through one fresh
+    ``ClusterBatcher``; returns (retired by uid, engine, wall s)."""
+    from repro_torch.serve import ClusterBatcher, serve_all
+
+    eng = ClusterBatcher(max_batch=SERVE_MAX_BATCH, max_wait=SERVE_MAX_WAIT,
+                         num_samples=3, device=dev, **engine)
+    reqs = _requests(rows, graphs, lams, pick)
+    sync(dev)
+    t0 = time.perf_counter()
+    out = serve_all(eng, reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    eng.close()
+    if sorted(r.uid for r in out) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"serving ({engine}) did not retire every "
+                             "request exactly once")
+    return {r.uid: r for r in out}, eng, wall
+
+
+def check_served(out, rows, want, what):
+    """Every retired result equals the batch path's for its graph, key,
+    method and objective: labels, cost and info (picked sample, depth)."""
+    for uid, req in out.items():
+        ref_res = want[rows[uid]]
+        res = req.result
+        if not ((res.labels == ref_res.labels).all()
+                and res.cost == ref_res.cost and res.info == ref_res.info):
+            raise AssertionError(f"{what}: request {uid} (graph "
+                                 f"{rows[uid][0]}, {rows[uid][1]}) differs "
+                                 "from correlation_cluster_batch")
+
+
+def batch_results(rows, graphs, lams, dev, objective, pick=None):
+    """correlation_cluster_batch on the card per method over the trace's
+    distinct (graph, method) pairs: {(graph, method): result}."""
+    from repro_torch.core import batch
+    from repro_torch.core import rng as trng
+
+    pairs = sorted({rows[i] for i in (range(len(rows)) if pick is None
+                                      else pick)})
+    want = {}
+    for method in ("pivot", "precluster"):
+        gis = [gi for gi, m in pairs if m == method]
+        res = batch.correlation_cluster_batch(
+            [graphs[gi] for gi in gis], keys=[trng.PRNGKey(gi) for gi in gis],
+            lams=[lams[gi] for gi in gis], method=method, num_samples=3,
+            objective=objective, device=dev)
+        want.update({(gi, method): r for gi, r in zip(gis, res)})
+    return want
+
+
+def check_against_host(out, rows, graphs, lams, n_checks, rng):
+    """``n_checks`` retired requests against the CPU: pivot through the
+    batch path on the CPU, precluster through the host oracle
+    ``precluster_host`` on the picked sample's ranks; costs against the
+    host disagreement count."""
+    from repro_torch.core import api, batch, mis, plan as tplan, programs
+    from repro_torch.core import rng as trng
+
+    small = [uid for uid in sorted(out) if graphs[rows[uid][0]].n <= 4096]
+    uids = rng.choice(small, n_checks, replace=False)
+    for uid in uids:
+        gi, method = rows[uid]
+        g, res = graphs[gi].to(torch.device("cpu")), out[uid].result
+        if method == "precluster":
+            p = tplan.plan_graph(g, method="precluster", lam=lams[gi])
+            key = api.sample_keys(trng.PRNGKey(gi), 3)[
+                res.info["picked_sample"]]
+            ranks = mis.random_permutation_ranks(g.n, key, device="cpu")
+            labels, rounds = programs.precluster_host(
+                g.n, p.canonical_edges, p.eligible, ranks.numpy())
+            same = (labels == res.labels).all() and \
+                rounds == res.info["depth"]
+        else:
+            cpu = batch.correlation_cluster_batch(
+                [g], keys=[trng.PRNGKey(gi)], lams=[lams[gi]], method=method,
+                num_samples=3, device="cpu")[0]
+            same = (cpu.labels == res.labels).all() and cpu.info == res.info
+        if not (same and res.cost == batch._cost_host(g, res.labels)):
+            raise AssertionError(f"request {uid} (graph {gi}, {method}) "
+                                 "differs from the CPU")
+    return len(uids)
+
+
+def submit_return(graphs, lams, dev, card):
+    """``submit``'s return time against the flush's wall on the R = 2^15
+    pivot bucket, async and sync executors."""
+    from repro_torch.core import api, executor as ex, plan as tplan
+    from repro_torch.core import rng as trng
+
+    big = [gi for gi, g in enumerate(graphs) if g.n > 16384]
+    plans = [tplan.plan_graph(graphs[gi], lam=lams[gi]) for gi in big]
+    W = max(p.W for p in plans)
+    plans = [tplan.promote_plan(p, 1 << 15, W) for p in plans]
+    keys = [api.sample_keys(trng.PRNGKey(gi), 3) for gi in big]
+    pool = tplan.BucketBufferPool(device=dev)
+    out = {}
+    for name in ("async", "sync", "sync", "async"):
+        exe = ex.make_executor(name, device=dev)
+        handle, _ = ex.pack_and_submit(plans, keys, 3, exe, pool=pool)
+        handle.result()
+        out.setdefault(name, []).append(
+            {"returned_s": handle.returned_seconds,
+             "wall_s": handle.wall_seconds})
+        if hasattr(exe, "close"):
+            exe.close()
+    for name, passes in out.items():
+        print(f"    {name} submit on ({len(plans) * 3}, 32768, {W}): "
+              "returned after " + " / ".join(
+                  f"{p['returned_s'] * 1e3:.3f}" for p in passes)
+              + " ms of a " + " / ".join(
+                  f"{p['wall_s'] * 1e3:.1f}" for p in passes)
+              + f" ms flush  [{card}]")
+    return out
+
+
+def serving_phase(dev, card, seed, bench):
+    """The clustering serving layer on the card, at the main path's
+    workload: the trace through ``serve_all`` and ``ClusterBatcher``, every
+    result against the batch path and 64 against the CPU."""
+    from repro_torch.core.graph import build_graph, random_arboric
+    from repro_torch.kernels import agreement as ag
+    from repro_torch.kernels import neighbor_min as nm
+
+    rng = np.random.default_rng([seed, 6])
+    graphs, lams = main_path_workload(rng, build_graph, random_arboric, dev)
+    rows = serving_trace(graphs, lams, rng)
+    n_pre = sum(m == "precluster" for _, m in rows)
+    print(f"serving layer: {len(rows)} requests over {len(graphs)} graphs "
+          f"({n_pre} precluster, {len(rows) - len(set(rows))} exact "
+          f"repeats), k = 3, max_batch {SERVE_MAX_BATCH}, max_wait "
+          f"{SERVE_MAX_WAIT} s")
+    record = {"requests": len(rows), "precluster": n_pre,
+              "repeats": len(rows) - len(set(rows))}
+    record["agree_rows"] = precluster_kernel_rows(bench, graphs, lams, dev,
+                                                  card)
+    want = batch_results(rows, graphs, lams, dev, "disagree")
+
+    # The measured run: async executor, cost policy, counts zeroed just
+    # before and read just after.
+    nm.reset_launch_counts()
+    ag.reset_launch_counts()
+    out, eng, wall = serve_pass(rows, graphs, lams, dev, executor="async",
+                                policy="cost")
+    launches = {**nm.launches, **ag.launches}
+    check_served(out, rows, want, "async/cost")
+    for name in B1_B2 + ("agreement_ell_batch",):
+        if dev.type == "cuda" and launches[name] <= 0:
+            raise AssertionError(f"the serving path never launched {name}")
+    walls = np.array(eng.stats.latency.samples("wall")) * 1e3
+    st = eng.stats
+    record.update(
+        wall_s=wall, requests_per_s=len(rows) / wall, launches=launches,
+        flushes=st.flushes, cache_hits=st.cache_hits,
+        subscribed=st.subscribed, coalesced_flushes=st.coalesced_flushes,
+        in_flight_peak=st.in_flight_peak,
+        result_cache=eng.result_cache.info(),
+        flush_ms_p50=float(np.percentile(walls, 50)),
+        flush_ms_p99=float(np.percentile(walls, 99)))
+    print(f"  (h) async/cost: {len(rows)} requests in {wall:.3f} s = "
+          f"{len(rows) / wall:.1f} requests/s; {st.flushes} flushes, flush "
+          f"wall p50 {record['flush_ms_p50']:.3f} ms p99 "
+          f"{record['flush_ms_p99']:.3f} ms; {st.cache_hits} cache hits, "
+          f"{st.subscribed} single-flight riders ("
+          f"{st.result_cache.evictions} cache evictions), "
+          f"{st.coalesced_flushes} "
+          f"coalesced flushes, in flight at most {st.in_flight_peak}; "
+          f"launches {launches}  [{card}]")
+    print(f"      every result equals correlation_cluster_batch; "
+          f"{check_against_host(out, rows, graphs, lams, SERVE_CPU_CHECKS, rng)}"
+          f" equal the CPU (precluster against precluster_host)")
+    # Async against sync on the same trace and policy, A B B A; then the
+    # coalescing policy on the sync executor.
+    abba = {"async": [wall], "sync": []}
+    for name in ("sync", "sync", "async"):
+        o, _, w = serve_pass(rows, graphs, lams, dev, executor=name,
+                             policy="cost")
+        check_served(o, rows, want, f"{name}/cost")
+        abba[name].append(w)
+    o, eng, w = serve_pass(rows, graphs, lams, dev, executor="sync",
+                           policy="coalesce")
+    check_served(o, rows, want, "sync/coalesce")
+    rates = {name: [len(rows) / t for t in ts] for name, ts in abba.items()}
+    record.update(walls_abba_s=abba, requests_per_s_abba=rates,
+                  coalesce_sync_s=w,
+                  coalesce_sync_requests_per_s=len(rows) / w,
+                  coalesce_stolen=eng.stats.stolen_requests)
+    print(f"      wall A B B A on the same trace (cost policy): async "
+          f"{abba['async'][0]:.3f} / {abba['async'][1]:.3f} s = "
+          f"{rates['async'][0]:.1f} / {rates['async'][1]:.1f} requests/s, "
+          f"sync {abba['sync'][0]:.3f} / {abba['sync'][1]:.3f} s = "
+          f"{rates['sync'][0]:.1f} / {rates['sync'][1]:.1f} requests/s; "
+          f"sync/coalesce {w:.3f} s = {len(rows) / w:.1f} requests/s "
+          f"({eng.stats.stolen_requests} stolen requests)  [{card}]")
+    # The minmax objective and the sharded executor on a subset.
+    pick = sorted(rng.choice(len(rows), SERVE_SUBSET, replace=False))
+    want_mm = batch_results(rows, graphs, lams, dev, "minmax", pick)
+    for name in ("async", "sharded"):
+        o, eng, w = serve_pass(rows, graphs, lams, dev, pick=pick,
+                               executor=name, policy="cost",
+                               objective="minmax")
+        check_served(o, rows, want_mm, f"{name}/minmax")
+        record[f"minmax_{name}_s"] = w
+        print(f"      minmax, {name} executor: {SERVE_SUBSET} requests in "
+              f"{w:.3f} s, equal to the batch path  [{card}]")
+    record["submit"] = submit_return(graphs, lams, dev, card)
+    # Host seconds per layer of a sync pass over 512 requests (cProfile
+    # sees the calling thread only, so the sync executor).
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    wall = time.perf_counter()
+    prof.runcall(serve_pass, rows, graphs, lams, dev,
+                 pick=range(min(512, len(rows))), executor="sync",
+                 policy="cost")
+    wall = time.perf_counter() - wall
+    split = {name: 0.0 for name in SERVE_LAYERS}
+    for (path, _, func), (_, _, _, cum, _) in pstats.Stats(prof).stats.items():
+        if "repro_torch" in path and func in split:
+            split[func] += cum
+    record["host_s_512"] = {"wall_s": wall, **split}
+    print(f"      sync pass over 512 requests under cProfile {wall:.3f} s; "
+          "cumulative host s per layer: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in split.items()))
+    # The card's busy share over a traced pass of the first 512 requests.
+    t0 = time.perf_counter()
+    events = device_events(lambda: serve_pass(
+        rows, graphs, lams, dev, pick=range(min(512, len(rows))),
+        executor="async", policy="cost"))
+    traced = time.perf_counter() - t0
+    if events is None:
+        print("      device busy share: not measured (no device events)")
+    else:
+        busy = sum(us for _, us in events) / 1e6
+        ell_ms = {name: sum(us for ev, us in events if key in ev) / 1e3
+                  for name, key in zip(B1_B2, ("neighbor_min",
+                                               "label_agree"))}
+        record.update(traced_wall_s=traced, device_busy_s=busy,
+                      traced_ell_ms=ell_ms)
+        print(f"      traced pass over 512 requests: device busy "
+              f"{busy:.3f} s of {traced:.3f} s ({100 * busy / traced:.1f} "
+              f"%), B1 {ell_ms[B1_B2[0]]:.3f} ms, B2 "
+              f"{ell_ms[B1_B2[1]]:.3f} ms  [{card}]")
+    del graphs
+    torch.cuda.empty_cache()
+    return record
+
+
 def serving_requests(rng, vocab_size, cache_len, pairs=4,
                      long_prompt=(512, 2001), max_new=33):
     """``pairs`` short prompts as the reference driver draws them (4–23
@@ -894,7 +1347,10 @@ def serving_path(model, requests, cache_len, card, slots=4):
                                                          1e-9),
         "prefills": st.prefills, "decode_steps": st.decode_steps,
         "emitted_tokens": st.emitted_tokens,
-        "wasted_slot_steps": st.wasted_slot_steps, "launches": launches}
+        "wasted_slot_steps": st.wasted_slot_steps, "launches": launches,
+        # B4's launches by (dtype, head dim) instance, for the kernels line.
+        "b4_instance_launches": {f"{d}/{h}": n for (d, h), n in
+                                 fa.instance_launches.items()}}
     print(f"  (e) {len(requests)} requests served in {wall:.3f} s wall: "
           f"prefill {timed.prefill_tokens} tokens in {timed.prefill_s:.3f} s"
           f" = {record['prefill_tokens_per_s']:.1f} tokens/s; decode "
@@ -1168,9 +1624,11 @@ def main() -> int:
         print(f"B4 A/B against {args.b4_baseline} at S >= {B4_AB_MIN_S}, "
               f"same inputs, a profiler session per kernel and pass  [{card}]")
     for shape in B4_SHAPES:
-        row = abench.run(shape, rng, ab=shape[3] >= B4_AB_MIN_S)
+        row = abench.run(shape, rng, ab=shape[3] >= B4_AB_MIN_S
+                         and shape[5] in B4_AB_HEAD_DIMS)
         record["b4_shapes"].append(row)
         print_b4_row(row)
+    record["b4_large_o"] = abench.large_output(rng)
 
     # 4. Clustering main path.
     t0 = time.perf_counter()
@@ -1247,7 +1705,38 @@ def main() -> int:
     del graphs, per_graph, path, stats
     torch.cuda.empty_cache()
 
-    # 5. LM serving path: smollm-135m at full width, f32, random weights.
+    # 5. The clustering serving layer.
+    serve_cl = serving_phase(dev, card, args.seed, bench)
+    record["cluster_serving"] = serve_cl
+    for tag, row in serve_cl["agree_rows"].items():
+        kernels.append({
+            "name": "neighbor_min_ell_batch", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES["neighbor_min_ell_batch"],
+            "launches": serve_cl["launches"]["neighbor_min_ell_batch"],
+            "max_abs_err": 0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"],
+            "call_ms": row["call_ms"],
+            "variant": f"precluster agree_ell, {tag} bucket, "
+                       f"{row['variant']} route (equal on "
+                       f"{'+'.join(row['equal_on'])})",
+            "kept_edge_share": row["kept_edge_share"]})
+    for tag, row in serve_cl["agree_rows"].items():
+        a = row["agreement"]
+        kernels.append({
+            "name": "agreement_ell_batch", "route": "cuda",
+            "source": AG_SOURCE, "replaces": AG_REPLACES,
+            "launches": serve_cl["launches"]["agreement_ell_batch"],
+            "max_abs_err": 0, "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "library_ms": None, "shape": a["shape"],
+            "call_ms": a["call_ms"],
+            "variant": f"{a['variant']}, {tag} bucket",
+            "peak_bytes": a["peak_bytes"],
+            "plain_peak_bytes": a["plain_peak_bytes"],
+            "program_ms": a["program_ms"]})
+
+    # 6. LM serving path: smollm-135m at full width, f32, random weights.
     cfg = get_config("smollm-135m")
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, dtype=torch.float32,
@@ -1266,7 +1755,7 @@ def main() -> int:
     serve_rec["entry_point"] = entry_point_check(card)
     record["serving_path"] = serve_rec
 
-    # B4 timed at the largest prefill shape the serving path gave it.
+    # B4 timed at the largest prefill shape the LM serving path gave it.
     s_max = len(longest.prompt)
     row = abench.run((1, cfg.num_heads, cfg.num_kv_heads, s_max, s_max,
                       cfg.head_dim, True, "float32"), rng, ab=True)
@@ -1275,7 +1764,8 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": B4_SOURCE,
         "replaces": B4_REPLACES,
-        "launches": serve_rec["launches"]["flash_attention"],
+        "launches": serve_rec["b4_instance_launches"].get(
+            f"float32/{cfg.head_dim}", 0),
         # Over every B4 check of this run, f32 and bf16 alike; by dtype
         # beside it.
         "max_abs_err": max(abench.max_err.values()),
@@ -1289,12 +1779,30 @@ def main() -> int:
         "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, "
                    f"mma.sync 3xTF32",
         **{k: row[k] for k in ("ab_ms", "baseline_ms") if k in row}})
+    # B4's instances at head dims 80 and 160: no ported model runs them
+    # yet (ROADMAP A18), so each row carries its own instance's launches
+    # on the LM path, which are 0.
+    b4_inst = serve_rec["b4_instance_launches"]
+    for row in record["b4_shapes"]:
+        if row["shape"][5] in (80, 160):
+            dtype = row["shape"][7]
+            kernels.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": B4_SOURCE, "replaces": B4_REPLACES,
+                "launches": b4_inst.get(f"{dtype}/{row['shape'][5]}", 0),
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "shape": row["shape"],
+                "call_ms": row["call_ms"], "bounds": row["bounds"],
+                "variant": f"fa_forward_kernel<{dtype}, {row['shape'][5]}>,"
+                           " off the path"})
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(record, indent=1))
 
-    # 6. Summary.
+    # 7. Summary.
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ It builds ``csrc/flash_attention.cu`` and prints, per kernel instance,
 ptxas's registers, stack and spill bytes, and each (dtype, D)'s shared
 memory per block. ``--check-only`` then runs the kernel once at every
 ``measure.B4_SHAPES`` entry against the plain version within 2e-5 (f32) /
-2e-2 (bf16), and stops: the quick first check after an edit of the
-kernel. Without it, at the shapes below it holds the kernel and each
+2e-2 (bf16), and at ``measure.B4_LARGE_O_SHAPE`` (bf16 outputs in
+[4.5, 7.5]) against the plain version's f32 output within 2e-2, printing
+each ``--baseline``'s error there too, and stops: the quick first check
+after an edit of the kernel. Without it, at the shapes below it holds the kernel and each
 ``--baseline`` (an earlier ``flash_attention.cu``, see
 ``measure.FaBaseline``) to the plain version and times them on the same
 random inputs (numpy, seed 0), device ms per call from the profiler, each
@@ -101,6 +103,17 @@ def main() -> int:
                 fa.flash_attention, q, k, v, causal=causal), want, shape)
             print(f"  {shape}: max abs err {err:.3g}")
             record["rows"].append({"shape": list(shape), "err": err})
+        # Outputs in [4.5, 7.5] against the plain version's f32 output.
+        shape = ms.B4_LARGE_O_SHAPE
+        q, k, v, want = ms.b4_large_output_inputs(shape, rng, dev)
+        for name, fn in {"B4": fa.flash_attention, **bases}.items():
+            got = fn(q, k, v, causal=True)
+            err = ms.b4_large_output_check(got, want, shape)[0] \
+                if name == "B4" else float((got.float() - want).abs().max())
+            print(f"  {name} at {shape}, |o| in [4.5, 7.5]: max abs err "
+                  f"{err:.3g} against the f32 plain output")
+            record["rows"].append({"shape": list(shape), "large_o": True,
+                                   "kernel": name, "err": err})
     else:
         print(f"device ms per call, A B C ... C B A, the mean of two "
               f"passes  [{card}]")

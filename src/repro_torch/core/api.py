@@ -6,6 +6,9 @@ batch engine. Ported methods:
 * ``pivot``     — Corollary 28: degree cap (Thm 26, ε) + PIVOT (3-approx in
                   expectation). The paper's headline algorithm.
 * ``pivot_raw`` — PIVOT without the degree cap (baseline comparator).
+* ``precluster`` — constant-round neighbourhood-agreement pre-clustering
+                  (arXiv 2106.08448); the per-graph counterpart of the
+                  batch engine's ``'precluster'`` bucket program.
 
 The other methods of the reference raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -17,6 +20,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.util import DeviceLike, resolve_device
 
@@ -27,10 +31,10 @@ from .degree_cap import high_degree
 from .graph import Graph, build_graph
 from .pivot import _pivot_samples
 
+PORTED = ("pivot", "pivot_raw", "precluster")
 # Reference methods not ported yet, and the ROADMAP item that ports them.
 NOT_PORTED = {
     "pivot_phased": "A14",
-    "precluster": "A10",
     "forest_exact": "A15",
     "forest_approx": "A15",
     "cliques": "A15",
@@ -88,9 +92,9 @@ def correlation_cluster(
         raise NotImplementedError(
             f"method {method!r} is not ported yet: ROADMAP "
             f"{NOT_PORTED[method]}")
-    if method not in ("pivot", "pivot_raw"):
+    if method not in PORTED:
         raise ValueError(f"unknown method {method!r}; expected one of "
-                         f"{tuple(sorted(('pivot', 'pivot_raw', *NOT_PORTED)))}")
+                         f"{tuple(sorted((*PORTED, *NOT_PORTED)))}")
     if isinstance(g, Graph):
         g = _on_device(g, device)
     else:
@@ -100,10 +104,13 @@ def correlation_cluster(
     key = key if key is not None else _rng.PRNGKey(0)
     info: dict = {}
 
-    if lam is None and method == "pivot":
+    if lam is None and method in ("pivot", "precluster"):
         lo, hi = arboricity_bounds(g, exact=g.n <= 200_000)
         lam = hi  # degeneracy upper bound; only moves the O(λ/ε) constant
         info["lambda_estimate"] = (lo, hi)
+
+    if method == "precluster":
+        return _precluster(g, key, num_samples, eps, lam, info)
 
     # Every sample's PIVOT in one batched rank draw and one kernel launch.
     keys = sample_keys(key, num_samples)
@@ -122,6 +129,38 @@ def correlation_cluster(
         info.update(num_samples=num_samples, picked_sample=picked)
     return ClusterResult(labels=np.asarray(labels_k[picked]),
                          cost=costs[picked], method=method, info=info)
+
+
+def _precluster(g: Graph, key, num_samples: int, eps: float, lam: int,
+                info: dict) -> ClusterResult:
+    """``method='precluster'``: the registered bucket program on the
+    graph's device, one batch entry per sample (so B1 runs on the card),
+    the sample picked by the full-graph disagreement cost, first minimum.
+
+    The reference runs the host oracle ``precluster_host`` per sample on
+    the same plan and ranks; labels, cost and info equal its.
+    """
+    from .plan import build_packed_rows, plan_graph
+    from .programs import _precluster_rounds_body
+
+    plan = plan_graph(g, method="precluster", eps=eps, lam=lam)
+    keys = sample_keys(key, num_samples)
+    rows = build_packed_rows(plan, keys)
+    k, dev = len(keys), g.device
+    ell = torch.from_numpy(rows.ell).to(dev).expand(k, -1, -1).contiguous()
+    elig = torch.from_numpy(rows.elig).to(dev).expand(k, -1).contiguous()
+    ranks = torch.from_numpy(rows.ranks).to(dev)
+    labels_k, rounds_k = _precluster_rounds_body(ell, ranks, elig)
+    labels_k = labels_k[:, : g.n].cpu().numpy()
+    rounds_k = rounds_k.cpu().tolist()
+    costs = [clustering_cost(g, labels_i) for labels_i in labels_k]
+    picked = costs.index(min(costs))        # the first minimum wins
+    info.update(depth=rounds_k[picked], threshold=plan.threshold,
+                high_degree=int((~plan.eligible).sum()))
+    if num_samples > 1:
+        info.update(num_samples=num_samples, picked_sample=picked)
+    return ClusterResult(labels=labels_k[picked], cost=costs[picked],
+                         method="precluster", info=info)
 
 
 # Batched multi-graph engine (see core/batch.py). Imported at the bottom:

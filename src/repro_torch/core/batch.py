@@ -1,4 +1,4 @@
-"""Batched multi-graph PIVOT engine — the public entry point.
+"""Batched multi-graph clustering engine — the public entry point.
 
 The batch engine packs many small graphs into **shape buckets** and runs
 each bucket through one device program, so a bucket of hundreds of graphs
@@ -7,7 +7,8 @@ costs one MIS rounds loop instead of hundreds.
 * :mod:`repro_torch.core.plan` — host side: ``plan_graph`` bucketing and
   the ``pack_bucket`` ELL packer with ``PackStats`` accounting.
 * :mod:`repro_torch.core.executor` — device side: the bucket program
-  (rounds body × cost pass × best-of-k) and the ``SyncExecutor``.
+  (rounds body × cost pass × best-of-k) and the sync, async and sharded
+  executors.
 
 Bit-exactness contract: for the same per-graph key,
 ``correlation_cluster_batch`` returns labels, costs, picked sample indices
@@ -58,15 +59,19 @@ def correlation_cluster_batch(
         another device than ``device`` is moved there.
       keys: per-graph keys (a single key is broadcast to all; defaults to
         ``PRNGKey(0)`` like the per-graph api).
-      method: ``'pivot'`` (degree-capped, Corollary 28) or ``'pivot_raw'``.
-      objective: ``'disagree'``, the total disagreement count.
+      method: ``'pivot'`` (degree-capped, Corollary 28), ``'pivot_raw'``
+        or ``'precluster'`` (constant-round agreement pre-clustering).
+      objective: ``'disagree'`` (the total disagreement count) or
+        ``'minmax'`` (the worst vertex's, on the eligible-induced
+        subgraph).
       lams: optional per-graph arboricity bounds (estimated when omitted).
       num_samples: best-of-k — each graph is clustered under ``k`` folded
         keys in the same bucket and the lowest-cost replica is selected on
         the device, matching ``correlation_cluster(num_samples=k)``
         bit-exactly (including the picked sample index).
       with_stats: also return the packer's :class:`PackStats`.
-      executor: ``'sync'``, a :class:`SyncExecutor`, or None (sync).
+      executor: ``'sync'``, ``'async'``, ``'sharded'``, an executor
+        instance, or None (sync).
       device: where the work runs; ``None`` means CUDA.
 
     Returns one :class:`repro_torch.core.api.ClusterResult` per graph.
@@ -111,7 +116,7 @@ def correlation_cluster_batch(
         bplans = [plans[gi] for gi in members]
         bkeys = [sample_keys(keys[gi], k) for gi in members]
         handle, bucket_stats = pack_and_submit(
-            bplans, bkeys, k, ex, payload=(members, bplans),
+            bplans, bkeys, k, ex, payload=(members, bplans), track=False,
             objective=objective)
         handles.append(handle)
         stats.merge(bucket_stats)

@@ -1,4 +1,4 @@
-"""Disagreement cost of a clustering.
+"""Disagreement cost of a clustering, and the min-max objective.
 
 Cost convention (paper §1.3.2): for a clustering C of the complete signed
 graph whose positive edges are ``E⁺``,
@@ -49,4 +49,19 @@ def clustering_cost_split(g: Graph, labels) -> Tuple[int, int]:
     return _cost_parts(g, labels)
 
 
-__all__ = ["clustering_cost", "clustering_cost_split"]
+def minmax_cost(g: Graph, labels) -> int:
+    """Worst-vertex disagreement (min-max objective, arXiv 2502.12519).
+
+    Per vertex v: its cut positive edges plus its missing intra-cluster
+    positive edges; the clustering is scored by the *maximum* over
+    vertices instead of the sum. Numpy host oracle over the full graph,
+    the full-graph counterpart of the device cost pass in
+    :mod:`repro_torch.core.programs` (which scores the eligible-induced
+    capped subgraph; the two agree when the degree cap drops nothing).
+    """
+    from .programs import minmax_cost_host
+
+    return minmax_cost_host(g.n, g.undirected_edges(), labels)
+
+
+__all__ = ["clustering_cost", "clustering_cost_split", "minmax_cost"]

@@ -20,18 +20,25 @@ except the rank permutations, which are drawn on the graph's device:
   rows and :func:`promote_plan` are the admission-time packing that the
   serving slice (ROADMAP A12) calls.
 * :class:`PackStats` / :func:`estimate_pack_stats` account for padding.
+* :func:`graph_fingerprint` is the content address of one planned request
+  (the serving layer's result cache and single-flight key), and
+  :class:`BucketBufferPool` leases reusable host staging per packed shape
+  (pinned memory for a CUDA device, so that copies to the card run
+  asynchronously).
 
 The staging arrays are byte-equal to the reference's for the same plans and
 keys: ranks are a function of ``(n, key)`` only, so any grouping of graphs
-into buckets yields identical results. Reusable staging leases
-(``BucketBufferPool``) and the content fingerprint belong to the serving
-slice (ROADMAP A12).
+into buckets yields identical results. The fingerprint's payload is
+byte-equal to the reference's too, so a port key and the same jax key
+fingerprint alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import hashlib
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -77,6 +84,13 @@ class GraphPlan:
     def bucket(self) -> Tuple[int, int]:
         """Shape bucket (R, W) — the packing/promotion identity."""
         return (self.R, self.W)
+
+    @property
+    def queue_key(self) -> Tuple[str, int, int]:
+        """Serving-layer bucket key (method, R, W): requests coalesce into
+        one flush only when they share both the packed shape and the
+        registered bucket program."""
+        return (self.method, self.R, self.W)
 
 
 def _canonical_kept(und: np.ndarray, eligible: np.ndarray) -> np.ndarray:
@@ -263,6 +277,73 @@ def promote_plan(plan: GraphPlan, R: int, W: int) -> GraphPlan:
     return dataclasses.replace(plan, R=R, W=W, rows=rows)
 
 
+@dataclasses.dataclass(frozen=True)
+class GraphFingerprint:
+    """Content address of one planned clustering request.
+
+    ``digest`` is a 128-bit blake2b over ``payload``, the canonical byte
+    encoding of everything that determines the device result bit for bit
+    (see :func:`graph_fingerprint`). The payload rides along so a cache
+    keyed by ``digest`` can verify equality on every hit instead of
+    trusting the hash: a digest collision is counted and treated as a miss.
+    """
+
+    digest: str
+    payload: bytes
+
+    @property
+    def nbytes(self) -> int:
+        """Size of the retained canonical payload (cache byte accounting)."""
+        return len(self.payload)
+
+
+def _key_payload(key) -> bytes:
+    """Canonical bytes of a key: dtype, size and raw key words.
+
+    A port key is the uint32 ``(2,)`` array of
+    :func:`repro_torch.core.rng.PRNGKey`; the bytes equal those the
+    reference takes from the same jax legacy key, so both fingerprint
+    alike.
+    """
+    arr = np.ascontiguousarray(np.asarray(key))
+    return (str(arr.dtype).encode("utf-8") + b"\0"
+            + struct.pack("<q", arr.size) + arr.tobytes())
+
+
+def graph_fingerprint(plan: GraphPlan, key, *, method: str = "pivot",
+                      num_samples: int = 1, eps: float = 2.0,
+                      objective: str = "disagree") -> GraphFingerprint:
+    """Canonical, collision-checked content hash of one planned request.
+
+    Two requests with equal fingerprints produce bit-identical device
+    inputs, hence bit-identical ``(labels, cost, picked)``: the invariant
+    the serving layer's result cache and single-flight coalescing rest on.
+    The payload holds the eligible-induced edge set in its canonical
+    (lexsorted) order, the eligibility mask, ``n`` and ``m``; the exact key
+    bytes and ``num_samples`` (ranks are a function of ``(n, key)`` and the
+    sample keys fold from the base key); and ``method``, ``objective``,
+    ``eps`` and the resolved ``lam``. Promotion to a larger flush shape is
+    bit-exact, so the bucket does not enter it.
+    """
+    kept = plan_canonical_edges(plan)
+    elig = np.ascontiguousarray(np.asarray(plan.eligible, dtype=bool))
+    payload = b"".join([
+        b"cc-graph-fp2\0",
+        method.encode("utf-8") + b"\0",
+        objective.encode("utf-8") + b"\0",
+        struct.pack("<d", float(eps)),
+        struct.pack("<q", -1 if plan.lam is None else int(plan.lam)),
+        struct.pack("<qqq", max(1, int(num_samples)), int(plan.n),
+                    int(plan.g.m)),
+        _key_payload(key),
+        np.packbits(elig).tobytes() if plan.n else b"",
+        kept.tobytes(),
+    ])
+    return GraphFingerprint(
+        digest=hashlib.blake2b(payload, digest_size=16).hexdigest(),
+        payload=payload)
+
+
 @dataclasses.dataclass
 class PackStats:
     """Packing/padding accounting for one ``correlation_cluster_batch`` call."""
@@ -306,19 +387,24 @@ def estimate_pack_stats(plans: Sequence[GraphPlan], k: int,
 
 def pack_bucket(plans: Sequence[GraphPlan],
                 group_keys: Sequence[Optional[Sequence]],
-                k: int, g_pad: Optional[int] = None):
+                k: int, staging: Optional[dict] = None,
+                g_pad: Optional[int] = None):
     """Assemble one bucket's graphs (× k samples each) into host arrays.
 
     Returns ``(ell, ranks, elig, m_edges, pad_groups)`` with batch axis
-    ``B = g_pad · k`` (``g_pad`` defaults to ``next_pow2(len(plans))``).
-    The ``k`` sample replicas of a graph occupy contiguous entries so the
-    device argmin reduces over a ``(G, k)`` reshape. A plan with prebuilt
-    :class:`PackedRows` is assembled by row copies (its ``group_keys`` entry
-    may be ``None``); a plan without is derived here, its rank batch drawn
-    first and harvested after the host-side scatters. Deriving through
-    :func:`build_packed_rows` instead would interleave each graph's rank
-    draw with its host scatter and add a copy per graph, which made the
-    warm batch pass slower end to end on an H100 host.
+    ``B = g_pad · k`` (``g_pad`` defaults to ``next_pow2(len(plans))``;
+    the sharded executor asks for more). The ``k`` sample replicas of a
+    graph occupy contiguous entries so the device argmin reduces over a
+    ``(G, k)`` reshape. ``staging`` (the arrays of a
+    :class:`BucketBufferPool` lease) is refilled in place instead of
+    allocating. A plan with prebuilt :class:`PackedRows` is assembled by
+    row copies (its ``group_keys`` entry may be ``None``), and a flush of
+    only such plans restamps just the group-padding tail; a plan without
+    is derived here, its rank batch drawn first and harvested after the
+    host-side scatters. Deriving through :func:`build_packed_rows` instead
+    would interleave each graph's rank draw with its host scatter and add
+    a copy per graph, which made the warm batch pass slower end to end on
+    an H100 host.
     """
     R, W = plans[0].bucket
     if g_pad is None:
@@ -333,10 +419,24 @@ def pack_bucket(plans: Sequence[GraphPlan],
                 f"prebuilt rows at bucket {pr.bucket} with k={pr.k} cannot "
                 f"assemble into a ({R}, {W}) flush with k={k}; promote the "
                 "plan first (promote_plan relays its PackedRows)")
-    ell = np.full((b_pad, R, W), R, dtype=np.int32)
-    ranks = np.full((b_pad, R + 1), _INT32_MAX, dtype=np.int32)
-    elig = np.zeros((b_pad, R + 1), dtype=bool)
-    m_edges = np.zeros((b_pad,), dtype=np.int32)
+    all_prebuilt = all(pr is not None for pr in rows_list)
+    if staging is None:
+        ell = np.empty((b_pad, R, W), dtype=np.int32)
+        ranks = np.empty((b_pad, R + 1), dtype=np.int32)
+        elig = np.empty((b_pad, R + 1), dtype=bool)
+        m_edges = np.empty((b_pad,), dtype=np.int32)
+    else:
+        ell, ranks, elig, m_edges = (staging["ell"], staging["ranks"],
+                                     staging["elig"], staging["m_edges"])
+        if ell.shape != (b_pad, R, W):
+            raise ValueError(f"staging of shape {ell.shape} cannot hold a "
+                             f"({b_pad}, {R}, {W}) flush")
+    # Rows a prebuilt flush overwrites wholly need no pad pattern first.
+    first_pad = len(plans) * k if all_prebuilt else 0
+    ell[first_pad:] = R
+    ranks[first_pad:] = _INT32_MAX
+    elig[first_pad:] = False
+    m_edges[first_pad:] = 0
 
     # Draw the derived graphs' rank batches first: on a CUDA graph they run
     # on the card while the host scatters the ELL rows below.
@@ -392,8 +492,109 @@ def result_for_plan(plan: GraphPlan, labels_row: np.ndarray, cost: int,
                          cost=cost, method=method, info=info)
 
 
+class StagingLease:
+    """One checked-out host staging buffer set (see :class:`BucketBufferPool`).
+
+    ``arrays`` maps ``ell``/``ranks``/``elig``/``m_edges`` to the numpy
+    staging arrays a flush packs into. The lease must be released (once)
+    after the device program consuming the buffers has completed; the
+    executor layer does this when a flush's outputs are fetched.
+    """
+
+    __slots__ = ("pool", "key", "arrays", "released")
+
+    def __init__(self, pool: "BucketBufferPool", key: Tuple[int, int, int],
+                 arrays: dict):
+        self.pool = pool
+        self.key = key
+        self.arrays = arrays
+        self.released = False
+
+    def release(self) -> None:
+        if not self.released:
+            self.released = True
+            self.pool._release(self)
+
+
+class BucketBufferPool:
+    """Persistent host staging buffers per packed shape ``(B, R, W)``.
+
+    The numpy ``ell``/``ranks``/``elig``/``m_edges`` arrays a flush packs
+    into are allocated once per shape and refilled in place on later
+    flushes. Buffers are handed out as :class:`StagingLease` objects: a
+    leased buffer is **never** handed out again until released, so an
+    async executor overlapping flushes of one bucket shape gets a second
+    buffer generation instead of refilling the one still feeding an
+    in-flight program. Synchronous serving releases each lease before the
+    next flush, holding O(#buckets) buffers; pipelined serving holds
+    O(#buckets · in-flight).
+
+    For a CUDA ``device`` the arrays are views of pinned host memory, so
+    that the executor's copies to the card are asynchronous. (The
+    reference's pool also switches its programs to donated device inputs;
+    PyTorch frees a flush's device inputs when its references drop, so
+    there is nothing to switch.) Results are bit-identical with or without
+    the pool.
+    """
+
+    def __init__(self, device=None):
+        import torch
+
+        self.pinned = (device is not None
+                       and torch.device(device).type == "cuda")
+        self._free: Dict[Tuple[int, int, int], List[dict]] = {}
+        self._allocated = 0
+        self._leased = 0
+
+    def _new_buffers(self, b: int, r: int, w: int) -> dict:
+        import torch
+
+        shapes = {"ell": ((b, r, w), torch.int32),
+                  "ranks": ((b, r + 1), torch.int32),
+                  "elig": ((b, r + 1), torch.bool),
+                  "m_edges": ((b,), torch.int32)}
+        # The numpy views keep their pinned tensors alive.
+        return {name: torch.empty(shape, dtype=dt,
+                                  pin_memory=self.pinned).numpy()
+                for name, (shape, dt) in shapes.items()}
+
+    def acquire(self, b: int, r: int, w: int) -> StagingLease:
+        """Check out a staging buffer set for shape ``(b, r, w)``.
+
+        Reuses a free buffer when one exists; otherwise allocates — a
+        buffer whose lease is outstanding is never returned.
+        """
+        key = (b, r, w)
+        free = self._free.get(key)
+        if free:
+            arrays = free.pop()
+        else:
+            arrays = self._new_buffers(b, r, w)
+            self._allocated += 1
+        self._leased += 1
+        return StagingLease(self, key, arrays)
+
+    def _release(self, lease: StagingLease) -> None:
+        self._leased -= 1
+        self._free.setdefault(lease.key, []).append(lease.arrays)
+
+    @property
+    def n_buffers(self) -> int:
+        """Total staging buffer sets allocated (free + leased)."""
+        return self._allocated
+
+    @property
+    def leased(self) -> int:
+        """Buffer sets currently checked out to in-flight flushes."""
+        return self._leased
+
+
 __all__ = [
     "GraphPlan",
+    "GraphFingerprint",
+    "graph_fingerprint",
+    "StagingLease",
+    "BucketBufferPool",
     "PackStats",
     "PackedRows",
     "plan_graph",

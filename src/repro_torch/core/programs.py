@@ -25,10 +25,29 @@ Both neighbourhood reductions go through the kernel wrappers of
 :mod:`repro_torch.kernels.neighbor_min`: the hand-written CUDA kernels for
 tensors on the card, their plain versions for tensors on the CPU.
 
-Registered: methods ``'pivot'`` / ``'pivot_raw'`` (one program family, they
-differ only in host-side eligibility planning) and objective
-``'disagree'``. Not ported yet: method ``'precluster'`` and objective
-``'minmax'`` (ROADMAP A10).
+Registered methods:
+
+* ``'pivot'`` / ``'pivot_raw'`` — the paper's MIS+PIVOT rounds loop (one
+  program family: they differ only in host-side eligibility planning).
+* ``'precluster'`` — constant-round pre-clustering by neighbourhood
+  agreement (Cohen-Addad et al., arXiv 2106.08448): neighbours whose
+  closed neighbourhoods differ by less than a constant fraction agree (one
+  launch of the agreement kernel), and labels are the minimum rank reached
+  over :data:`PRECLUSTER_ROUNDS` static hops of the agreement graph, each
+  hop one B1 launch.
+
+Registered objectives:
+
+* ``'disagree'`` — total disagreement count (the paper's objective).
+* ``'minmax'`` — worst-vertex disagreement (min-max correlation clustering,
+  arXiv 2502.12519), scored on the *eligible-induced* (degree-capped)
+  subgraph the packed tensors carry: a cap-dropped edge's disagreement is
+  not attributed to its endpoints. The host oracle
+  :func:`minmax_cost_host` scores whatever edge list it is given.
+
+The numpy host oracles :func:`precluster_host` and :func:`minmax_cost_host`
+are copies of the reference's: integer-only agreement math, no float
+thresholds.
 """
 
 from __future__ import annotations
@@ -36,15 +55,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import agreement as _ag
 from repro_torch.kernels import neighbor_min as _nm
+from repro_torch.kernels.ref import BETA_DEN, BETA_NUM
 
 from .mis import IN_MIS, INF_RANK, REMOVED, UNDECIDED
 
-# Reference registry entries that wait for a later slice.
-NOT_PORTED_METHODS = {"precluster": "A10"}
-NOT_PORTED_OBJECTIVES = {"minmax": "A10"}
+# Constant round budget of the precluster min-rank propagation.
+PRECLUSTER_ROUNDS = 3
 
 
 # ---------------------------------------------------------------------------
@@ -90,21 +111,69 @@ def _pivot_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
     # PIVOT capture: min-rank MIS neighbour, one batched convergecast.
     in_mis = status == IN_MIS
     wmin = nbr_min(in_mis)
-    arange_r = torch.arange(R, dtype=torch.int32, device=dev).expand(B, R)
+    labels = _rank_capture(ranks, wmin, (wmin < INF_RANK) & ~in_mis, elig)
+    return labels, rounds
+
+
+def _rank_capture(ranks: torch.Tensor, reached: torch.Tensor,
+                  mask: torch.Tensor, elig: torch.Tensor) -> torch.Tensor:
+    """Labels from reached ranks: where ``mask`` holds, the vertex whose
+    rank is ``reached``; elsewhere, and at ineligible vertices, the
+    vertex's own index."""
+    B, R = ranks.shape
+    arange_r = torch.arange(R, dtype=torch.int32,
+                            device=ranks.device).expand(B, R)
     # Padded rows (rank INF) all clip to slot R. Duplicate writes land only
-    # there, and slot R is read only where wmin == INF and then discarded,
-    # so the scatter's write order cannot matter.
-    rank_to_v = torch.zeros((B, R + 1), dtype=torch.int32, device=dev)
+    # there, and slot R is read only where ``reached`` is INF and then
+    # discarded, so the scatter's write order cannot matter.
+    rank_to_v = torch.zeros((B, R + 1), dtype=torch.int32,
+                            device=ranks.device)
     rank_to_v.scatter_(1, ranks.clamp(0, R).long(), arange_r)
-    piv = torch.gather(rank_to_v, 1, wmin.clamp(max=R).long())
-    labels = torch.where(in_mis, arange_r,
-                         torch.where(wmin < INF_RANK, piv, arange_r))
-    labels = torch.where(elig, labels, arange_r)
+    lab = torch.gather(rank_to_v, 1, reached.clamp(max=R).long())
+    labels = torch.where(mask, lab, arange_r)
+    return torch.where(elig, labels, arange_r)
+
+
+def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
+                            elig_p: torch.Tensor):
+    """Constant-round pre-clustering by neighbourhood agreement.
+
+    Three straight-line stages, no data-dependent loop:
+
+    1. **Agreement pass** — common-neighbour counts of every kept edge,
+       then the integer agreement predicate
+       (:func:`repro_torch.kernels.agreement.agreement_ell_batch`: its
+       kernel on the card, the plain version's sorted-row membership tests
+       on the CPU).
+    2. **Min-rank propagation** — :data:`PRECLUSTER_ROUNDS` static hops of
+       per-vertex min over the agreement neighbourhood (kernel B1, the
+       state row as its ranks, the eligibility row as its active mask),
+       seeded with each vertex's own rank.
+    3. **Label capture** — the reached minimum rank maps back to its
+       vertex through the rank→vertex table PIVOT's capture uses.
+
+    ``rounds`` counts the static hops that still changed some vertex.
+    """
+    B, R, W = ell.shape
+    dev = ell.device
+    ranks = ranks_p[:, :R]
+    elig = elig_p[:, :R]
+    agree_ell = _ag.agreement_ell_batch(ell)
+    inf_col = torch.full((B, 1), INF_RANK, dtype=torch.int32, device=dev)
+    state = torch.where(elig, ranks, inf_col)
+    rounds = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for _ in range(PRECLUSTER_ROUNDS):
+        state_p = torch.cat([state, inf_col], dim=1)
+        nxt = torch.minimum(
+            state, _nm.neighbor_min_ell_batch(agree_ell, state_p, elig_p))
+        rounds += (nxt != state).any(dim=1).to(torch.int32)
+        state = nxt
+    labels = _rank_capture(ranks, state, state < INF_RANK, elig)
     return labels, rounds
 
 
 # ---------------------------------------------------------------------------
-# Cost pass.
+# Cost passes.
 # ---------------------------------------------------------------------------
 
 
@@ -138,6 +207,24 @@ def _disagree_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
     sizes = _cluster_sizes(labels)
     intra_pairs = (sizes * (sizes - 1) // 2).sum(dim=1, dtype=torch.int32)
     return m_edges - intra_pos2 + intra_pairs
+
+
+def _minmax_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
+                      m_edges: torch.Tensor) -> torch.Tensor:
+    """Worst-vertex disagreement (min-max objective, arXiv 2502.12519).
+
+    Per vertex v: cut positive edges (deg(v) − samelabel(v)) plus missing
+    intra-cluster edges (|C(v)| − 1 − samelabel(v)); the entry's cost is
+    the maximum over its vertices, on the eligible-induced subgraph the
+    packed tensors carry (module docstring).
+    """
+    R = ell.shape[1]
+    agree = _label_agree_counts(ell, labels)
+    deg = (ell != R).sum(dim=2, dtype=torch.int32)
+    sizes = _cluster_sizes(labels)
+    size_of = torch.gather(sizes, 1, labels.long())
+    per_vertex = (deg - agree) + (size_of - 1 - agree)
+    return per_vertex.max(dim=1).values
 
 
 # ---------------------------------------------------------------------------
@@ -196,10 +283,6 @@ def registered_objectives() -> Tuple[str, ...]:
 
 
 def method_spec(method: str) -> BucketProgramSpec:
-    if method in NOT_PORTED_METHODS:
-        raise NotImplementedError(
-            f"batch method {method!r} is not ported yet: ROADMAP "
-            f"{NOT_PORTED_METHODS[method]}")
     try:
         return _METHODS[method]
     except KeyError:
@@ -209,10 +292,6 @@ def method_spec(method: str) -> BucketProgramSpec:
 
 
 def objective_spec(objective: str) -> ObjectiveSpec:
-    if objective in NOT_PORTED_OBJECTIVES:
-        raise NotImplementedError(
-            f"objective {objective!r} is not ported yet: ROADMAP "
-            f"{NOT_PORTED_OBJECTIVES[objective]}")
     try:
         return _OBJECTIVES[objective]
     except KeyError:
@@ -229,9 +308,17 @@ register_method(BucketProgramSpec(
 register_method(BucketProgramSpec(
     method="pivot_raw", program="pivot", rounds_body=_pivot_rounds_body,
     degree_cap=False))
-# Total disagreement count, the paper's objective.
+# Constant-round neighbourhood-agreement pre-clustering (arXiv
+# 2106.08448), degree-capped like pivot.
+register_method(BucketProgramSpec(
+    method="precluster", program="precluster",
+    rounds_body=_precluster_rounds_body, degree_cap=True))
+# Total disagreement count, the paper's objective; worst-vertex
+# disagreement (arXiv 2502.12519, on the eligible-induced subgraph).
 register_objective(ObjectiveSpec(
     objective="disagree", cost_pass=_disagree_cost_pass))
+register_objective(ObjectiveSpec(
+    objective="minmax", cost_pass=_minmax_cost_pass))
 
 
 # ---------------------------------------------------------------------------
@@ -265,10 +352,100 @@ def bucket_impl(ell: torch.Tensor, ranks_p: torch.Tensor,
     return labels_win, costs_win, picked.to(torch.int32), rounds_win
 
 
+# ---------------------------------------------------------------------------
+# Numpy host oracles (copies of the reference's).
+# ---------------------------------------------------------------------------
+
+_INT32_INF = np.int32(2**31 - 1)
+
+
+def _host_adjacency(n: int, edges: np.ndarray):
+    adj = [[] for _ in range(n)]
+    for u, v in np.asarray(edges, dtype=np.int64):
+        adj[int(u)].append(int(v))
+        adj[int(v)].append(int(u))
+    return [sorted(a) for a in adj]
+
+
+def precluster_host(n: int, edges: np.ndarray, eligible: np.ndarray,
+                    ranks: np.ndarray):
+    """Numpy reference of the precluster device program for one graph.
+
+    ``edges`` is the *eligible-induced* kept undirected edge list (what
+    the ELL pack carries), ``ranks`` the full permutation ranks. Returns
+    ``(labels (n,) int32, rounds int)`` bit-identical to the device
+    program's per-entry outputs — same integer agreement predicate, same
+    synchronous min-rank propagation over :data:`PRECLUSTER_ROUNDS` hops,
+    same rank→vertex capture.
+    """
+    eligible = np.asarray(eligible, dtype=bool)
+    ranks = np.asarray(ranks, dtype=np.int64)
+    adj = _host_adjacency(n, edges)
+    deg = np.array([len(a) for a in adj], dtype=np.int64)
+    sets = [set(a) for a in adj]
+
+    agree_adj = [[] for _ in range(n)]
+    for u, v in np.asarray(edges, dtype=np.int64):
+        u, v = int(u), int(v)
+        common = len(sets[u] & sets[v])
+        sym_diff = deg[u] + deg[v] - 2 * common - 2
+        if BETA_DEN * sym_diff < BETA_NUM * (max(deg[u], deg[v]) + 1):
+            agree_adj[u].append(v)
+            agree_adj[v].append(u)
+
+    state = np.where(eligible, ranks, np.int64(_INT32_INF))
+    rounds = 0
+    for _ in range(PRECLUSTER_ROUNDS):
+        nxt = state.copy()
+        for u in range(n):
+            for v in agree_adj[u]:
+                if state[v] < nxt[u]:
+                    nxt[u] = state[v]
+        if np.any(nxt != state):
+            rounds += 1
+        state = nxt
+
+    v_of_rank = np.empty(n, dtype=np.int64)
+    v_of_rank[ranks] = np.arange(n)
+    own = np.arange(n, dtype=np.int64)
+    labels = np.where(state < _INT32_INF, v_of_rank[np.minimum(state, n - 1)],
+                      own)
+    labels = np.where(eligible, labels, own)
+    return labels.astype(np.int32), rounds
+
+
+def minmax_cost_host(n: int, edges: np.ndarray,
+                     labels: np.ndarray) -> int:
+    """Numpy min-max oracle: worst-vertex disagreement over ``edges``.
+
+    Pass the full undirected positive edge list for the true objective, or
+    the eligible-induced kept list to mirror the device cost pass exactly.
+    """
+    labels = np.asarray(labels, dtype=np.int64)
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    deg = np.zeros(n, dtype=np.int64)
+    same = np.zeros(n, dtype=np.int64)
+    if len(edges):
+        np.add.at(deg, edges[:, 0], 1)
+        np.add.at(deg, edges[:, 1], 1)
+        agree = labels[edges[:, 0]] == labels[edges[:, 1]]
+        np.add.at(same, edges[agree][:, 0], 1)
+        np.add.at(same, edges[agree][:, 1], 1)
+    sizes = np.bincount(labels, minlength=n if n else 1)
+    size_of = sizes[labels] if n else np.zeros(0, dtype=np.int64)
+    per_vertex = (deg - same) + (size_of - 1 - same)
+    return int(per_vertex.max(initial=0))
+
+
 __all__ = [
     "UNDECIDED",
     "IN_MIS",
     "REMOVED",
+    "PRECLUSTER_ROUNDS",
+    "BETA_NUM",
+    "BETA_DEN",
+    "precluster_host",
+    "minmax_cost_host",
     "BucketProgramSpec",
     "ObjectiveSpec",
     "register_method",

@@ -14,7 +14,7 @@
 // accumulator, rescaled at each key tile; a row whose l is 0 gives 0. The
 // scores are kept in base 2 (scaled by log2(e), exponentials by
 // ex2.approx), which is the same softmax. Inputs are f32 or bf16, the
-// output has the input's type, D is 16, 32, 64 or 128.
+// output has the input's type, D is one of the instances listed below.
 //
 // What bounds it on an H100 (same flops, same bytes for both types: q, k,
 // v read once and o written once at 3.35 TB/s):
@@ -35,31 +35,42 @@
 // drops only lo*lo and lo's cut bits (~2^-21 relative) and lands ~1e-6
 // off (tests/test_torch_attention.py emulates both schemes on the CPU).
 // bf16 inputs: Q K^T is exact in one bf16 MMA with f32 accumulation. For
-// P V, P (f32, in [0, 1]) is rounded to bf16 (8 mantissa bits) to be the
-// MMA's A operand, as SDPA's and FlashAttention's bf16 kernels do; the
-// reference computes P V in f32. That costs up to ~2^-9 of each weight,
-// which moves the bf16 output by about one of its own units of last place
-// (max error ~1.6e-2 at |o| in [2, 4), PERF.md) and no more than that, so
-// the 2e-2 bf16 tolerance holds up to |o| < 4. Splitting P into a bf16
-// hi and lo would keep f32 but double the MMAs of P V; no path of the port
-// runs bf16 attention yet.
+// P V, P (f32, in [0, 1]) is the MMA's A operand, which takes bf16: it is
+// split into hi = bf16(p) and lo = bf16(p - hi), and P V is taken as
+// hi V + lo V with f32 accumulation, as the f32 path splits its operands.
+// That keeps ~16 bits of each weight (|p - hi - lo| <= 2^-17 p), so the
+// kernel's f32 result sits ~1e-5 of |o| from the f32 reference, which
+// computes P V in f32, and the bf16 output differs from the reference's
+// only by its own rounding, half a unit. Rounding P to bf16 alone (SDPA's
+// and FlashAttention's choice, and this kernel's before) costs up to 2^-9
+// of each weight and pushed the error to ~1.6e-2 at |o| in [2, 4), one
+// unit, so that the 2e-2 tolerance could not hold at |o| >= 4. The split
+// doubles the MMAs of P V (PERF.md).
+//
+// Head dims: 16, 32, 64, 80, 128 and 160, each an instance below (80 and
+// 160 are the head dims of zamba2-2.7b and stablelm-12b). Every one
+// divides into k-steps of 16 and into 8-wide column groups of an even
+// count, which the bf16 path's paired V loads need.
 //
 // Design, against the five causes that held back the previous version
 // (scalar FMAs; synchronous staging; P through shared memory; the causal
 // critical path; no K/V sharing in a GQA group):
 //  1. Tensor cores: each warp takes 16 query rows and keeps their Q
 //     fragments in registers (f32: pre-scaled by log2(e)/sqrt(D) and split
-//     once into hi and lo, at D = 128 at every tile, for registers; bf16:
-//     as stored, the scores scaled in f32).
+//     once into hi and lo, above D = 64 at every tile, for registers;
+//     bf16: as stored, the scores scaled in f32).
 //     S = Q K^T and O += P V run on mma.sync: m16n8k8 TF32, three MMAs a
-//     fragment pair, for f32; m16n8k16 bf16, one MMA, for bf16. The two
-//     small TF32 products of S and of P V go to accumulators of their
-//     own, so that no three MMAs wait on each other.
+//     fragment pair, for f32; m16n8k16 bf16, one MMA for S and two (P's
+//     hi and lo) for P V, for bf16. The small products of S and of P V
+//     go to accumulators of their own, so that no two MMAs in a row wait
+//     on each other; at D = 160 the second accumulator of P V would take
+//     80 more registers a thread, and the small products go to the main
+//     one.
 //     mma.sync and not wgmma: wgmma with TF32 takes only K-major operands,
 //     so V would have to be transposed in shared memory; that, TMA and
 //     warp specialisation are the next step (ROADMAP.md).
 //  2. Asynchronous copies: K/V tiles of BK keys (64; 32 for f32 at
-//     D = 128, for registers) go by cp.async in 16-byte chunks, in the
+//     D >= 128, for registers) go by cp.async in 16-byte chunks, in the
 //     input's own type, into two stages: tile t + 1 loads while tile t is
 //     multiplied. The TF32 split is done as fragments are read from shared
 //     memory (a shared split copy of each tile measured no faster). Rows
@@ -110,7 +121,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T, int D>
 struct Tile {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int BK = (kF32 && D == 128) ? 32 : 64;  // keys per tile
+  static constexpr int BK = (kF32 && D >= 128) ? 32 : 64;  // keys per tile
   static constexpr int LD = D + 16 / (int)sizeof(T);       // padded row
   static constexpr int ELEMS = BK * LD;                    // one K or V tile
   static constexpr int CHUNK = 16 / (int)sizeof(T);        // elements / copy
@@ -210,6 +221,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// (a, b) = hi + lo with hi and lo pairs of bf16: hi rounded to nearest,
+// lo the rounded rest (|a - hi - lo| <= 2^-17 |a|).
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -280,8 +300,8 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
 
   // Q's A fragments (rows g and g + 8 of the warp's 16), kept in registers:
-  // f32 split once into hi and lo, or at D = 128 kept as f32 (qf) and split
-  // at every tile; rows past Sq read as 0 and are never stored.
+  // f32 split once into hi and lo, or above D = 64 kept as f32 (qf) and
+  // split at every tile; rows past Sq read as 0 and are never stored.
   constexpr bool kQOnce = D <= 64;
   const int r0 = wr + g, r1 = wr + g + 8;
   uint32_t qh[KQ][4], ql[F32 && kQOnce ? KQ : 1][4];
@@ -315,16 +335,22 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // f32 keeps the small products of P V apart (accs), so that no three
-  // MMAs wait on each other: the heaviest block's walk, a chain of
-  // dependent MMAs, sets the time.
-  constexpr bool kSepPV = F32;
+  // The small products of P V (f32: hi*lo and lo*hi; bf16: P's lo) go to
+  // accs, so that no two MMAs in a row wait on each other: the heaviest
+  // block's walk, a chain of dependent MMAs, sets the time. At D = 160
+  // accs would not fit in the registers, and they go to acc.
+  constexpr bool kSepPV = D <= 128;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[ND][4], accs[kSepPV ? ND : 1][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = accs[kSepPV ? n : 0][e] = 0.f;
+  // The accumulator of column group n's small products of P V.
+  auto small = [&](int n) -> float(&)[4] {
+    if constexpr (kSepPV) return accs[n];
+    else return acc[n];
+  };
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
@@ -454,17 +480,17 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float* vr = sV + (kw + 8 * j + 2 * t) * LD + g;
 #pragma unroll
           for (int n = 0; n < ND; ++n)
-            mma_3xtf32(acc[n], accs[n], ph, pl, vr[8 * n], vr[LD + 8 * n]);
+            mma_3xtf32(acc[n], small(n), ph, pl, vr[8 * n], vr[LD + 8 * n]);
         }
       } else {
-        // P rounded to bf16 for the MMA (source note).
+        // P split into bf16 hi and lo for the MMAs (source note).
 #pragma unroll
         for (int j = 0; j < NS / 2; ++j) {
-          const uint32_t pa[4] = {
-              pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-              pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-              pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-              pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+          uint32_t ph[4], pl[4];
+          split_bf16(sc[2 * j][0], sc[2 * j][1], ph[0], pl[0]);
+          split_bf16(sc[2 * j][2], sc[2 * j][3], ph[1], pl[1]);
+          split_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1], ph[2], pl[2]);
+          split_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3], ph[3], pl[3]);
           // Lanes 0-15 address keys kw + 16j + (lane % 16), columns 8n;
           // lanes 16-31 the same keys, columns 8n + 8.
           const T* vr =
@@ -473,8 +499,10 @@ fa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int n = 0; n < ND; n += 2) {
             uint32_t bv[4];
             ldmatrix_x4_trans(bv, vr + 8 * n);
-            mma_bf16(acc[n], pa, bv[0], bv[1]);
-            mma_bf16(acc[n + 1], pa, bv[2], bv[3]);
+            mma_bf16(small(n), pl, bv[0], bv[1]);
+            mma_bf16(small(n + 1), pl, bv[2], bv[3]);
+            mma_bf16(acc[n], ph, bv[0], bv[1]);
+            mma_bf16(acc[n + 1], ph, bv[2], bv[3]);
           }
         }
       }
@@ -569,8 +597,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
     case 16: return launch<T, 16>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
     case 32: return launch<T, 32>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
+    case 160:
+      return launch<T, 160>(q, k, v, o, B, H, KH, Sq, Sk, causal, off, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -578,7 +609,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The wrapper has checked shapes, types,
-// contiguity, D in {16, 32, 64, 128}, H % KH == 0, Sk >= 1 and, when
+// contiguity, D in {16, 32, 64, 80, 128, 160}, H % KH == 0, Sk >= 1 and, when
 // causal, Sk >= Sq (row_offset >= 0, so every row sees at least key 0).
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           int B, int H, int KH, int Sq, int Sk, int D,
@@ -605,11 +636,15 @@ extern "C" int fa_smem_bytes(int dtype, int D) {
     case 32: return (int)Tile<float, 16>::SMEM;
     case 64: return (int)Tile<float, 32>::SMEM;
     case 128: return (int)Tile<float, 64>::SMEM;
+    case 160: return (int)Tile<float, 80>::SMEM;
     case 256: return (int)Tile<float, 128>::SMEM;
+    case 320: return (int)Tile<float, 160>::SMEM;
     case 33: return (int)Tile<__nv_bfloat16, 16>::SMEM;
     case 65: return (int)Tile<__nv_bfloat16, 32>::SMEM;
     case 129: return (int)Tile<__nv_bfloat16, 64>::SMEM;
+    case 161: return (int)Tile<__nv_bfloat16, 80>::SMEM;
     case 257: return (int)Tile<__nv_bfloat16, 128>::SMEM;
+    case 321: return (int)Tile<__nv_bfloat16, 160>::SMEM;
     default: return -1;
   }
 }

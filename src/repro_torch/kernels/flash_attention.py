@@ -10,10 +10,9 @@ head ``h // (H // KH)``), scale ``1/sqrt(D)``, causal rows offset by
 ``Sk - Sq``. Inputs are f32 or bf16 and the output has the input's dtype.
 The kernel multiplies on the tensor cores with f32 accumulation: f32
 inputs as three TF32 products (hi*hi + hi*lo + lo*hi, within ~1e-6 of
-f32), bf16 inputs as one bf16 product, for which the softmax weights P
-(f32) are rounded to bf16 before P @ V, as SDPA's bf16 kernels do (the
-reference takes P @ V in f32; the source note gives the error this costs).
-The softmax itself is f32. The kernel masks ragged ``Sq`` and ``Sk``
+f32), bf16 inputs as bf16 products, for which the softmax weights P (f32)
+are split into a bf16 hi and lo before P @ V, so that P @ V keeps f32
+precision as in the reference. The softmax itself is f32. The kernel masks ragged ``Sq`` and ``Sk``
 itself, so no shape is padded on the host and none goes to another path;
 the reference's ragged non-causal fallback to its oracle is gone.
 
@@ -23,10 +22,12 @@ tensor's first element, and a tensor whose first element is not 16-byte
 aligned (a view at an odd offset) is copied first, so that every launch is
 aligned.
 
-Inputs the wrapper refuses on every device: ``D`` outside {16, 32, 64,
-128}, ``Sk == 0``, and causal with ``Sk < Sq``, where the first rows see no
-key at all (the reference's kernel and its oracle disagree there, and
-prefill never asks for it).
+Inputs the wrapper refuses on every device: ``Sk == 0``, and causal with
+``Sk < Sq``, where the first rows see no key at all (the reference's
+kernel and its oracle disagree there, and prefill never asks for it). On
+the card it also refuses a head dim ``D`` that has no kernel instance
+(:data:`HEAD_DIMS`); the plain version takes any ``D``, as the
+reference's kernel does.
 
 The tensor's device alone picks the implementation: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version
@@ -36,23 +37,28 @@ the kernel (or the call raises), a CPU tensor takes the plain version
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 from . import ref as _ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+# Head dims with a kernel instance in csrc/flash_attention.cu.
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the kernel: the wrapper adds one where it launches it and
 # nowhere else. Read and reset by callers that show a path went through it.
 launches: Dict[str, int] = {"flash_attention": 0}
+# The same launches split by kernel instance, keyed ("float32" or
+# "bfloat16", head dim), so a caller can tell which instances a path ran.
+instance_launches: Dict[Tuple[str, int], int] = {}
 
 
 def reset_launch_counts() -> None:
     launches["flash_attention"] = 0
+    instance_launches.clear()
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -86,8 +92,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if KH == 0 or H % KH:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {KH} KV heads")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if Sk == 0:
         raise ValueError("flash_attention: no keys (Sk == 0)")
     if causal and Sk < Sq:
@@ -101,6 +105,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device},"
                          f" v on {v.device}")
     if q.device.type == "cuda":
+        if D not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head dim {D} has no kernel "
+                             f"instance on the card; built: {HEAD_DIMS}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not t.is_contiguous():
                 raise ValueError(f"flash_attention: {name} must be contiguous")
@@ -135,8 +142,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention: CUDA kernel launch failed "
                            f"({code}: {msg})")
     launches["flash_attention"] += 1
+    key = (str(q.dtype).removeprefix("torch."), D)
+    instance_launches[key] = instance_launches.get(key, 0) + 1
     return out
 
 
 __all__ = ["flash_attention", "smem_bytes", "launches",
-           "reset_launch_counts", "HEAD_DIMS"]
+           "instance_launches", "reset_launch_counts", "HEAD_DIMS"]

@@ -30,7 +30,9 @@ INF = 2**31 - 1
 
 # B4 shapes (B, H, KH, Sq, Sk, D, causal, dtype): the reference's kernel
 # test (tests/test_kernels.py), smollm-135m prefills at three prompt
-# lengths, and a batch of eight long ones.
+# lengths, a batch of eight long ones, and prefills at head dims 80
+# (zamba2-2.7b's, 32 heads over 32) and 160 (stablelm-12b's, 32 over 8),
+# cut to 8 heads.
 B4_SHAPES = [
     (1, 4, 4, 128, 128, 64, True, "float32"),
     (2, 4, 2, 128, 128, 64, True, "float32"),
@@ -41,10 +43,48 @@ B4_SHAPES = [
     (1, 4, 4, 64, 64, 128, True, "bfloat16"),
 ] + [(1, 9, 3, s, s, 64, True, dt) for s in (24, 512, 2048)
      for dt in ("float32", "bfloat16")] + [
-    (8, 9, 3, 2048, 2048, 64, True, dt) for dt in ("float32", "bfloat16")]
+    (8, 9, 3, 2048, 2048, 64, True, dt) for dt in ("float32", "bfloat16")] + [
+    (1, 8, kh, 1024, 1024, d, True, dt) for d, kh in ((80, 8), (160, 2))
+    for dt in ("float32", "bfloat16")]
 # The reference's kernel tolerances: sums in another order, and a bf16
 # output may round one unit apart.
 B4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# A bf16 case whose every output lies in [4.5, 7.5], where one bf16 unit is
+# 2^-5: v = 6 + U(-1.5, 1.5). The kernel's bf16 output is held to
+# B4_TOL["bfloat16"] against the plain version's f32 output (before its
+# bf16 rounding): the output's own rounding takes half a unit, 1.56e-2, so
+# 2e-2 leaves 4.4e-3 for the kernel's error. P rounded to bf16 before
+# P @ V costs up to 2^-9 of each weight, more than that.
+B4_LARGE_O_SHAPE = (1, 9, 3, 2048, 2048, 64, True, "bfloat16")
+
+
+def b4_large_output_inputs(shape, rng, dev):
+    """q, k, v of :data:`B4_LARGE_O_SHAPE`'s kind and the plain version's
+    f32 output on them."""
+    from .ref import attention_ref
+
+    B, H, KH, Sq, Sk, D, causal, dtype = shape
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.standard_normal((B, H, Sq, D), np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, KH, Sk, D), np.float32))
+    v = torch.from_numpy(6 + rng.uniform(-1.5, 1.5, (B, KH, Sk, D))
+                         .astype(np.float32))
+    q, k, v = (t.to(dev, dt) for t in (q, k, v))
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    return q, k, v, want
+
+
+def b4_large_output_check(got, want, shape):
+    """The |o| >= 4 check on :func:`b4_large_output_inputs`: every output
+    at least 4 in magnitude and within ``B4_TOL["bfloat16"]`` of the plain
+    version's f32 output ``want``. Returns ``(max abs err, min |o|)``;
+    raises AssertionError where either fails."""
+    err = float((got.float() - want).abs().max())
+    low = float(got.float().abs().min())
+    if not (err < B4_TOL["bfloat16"] and low >= 4):
+        raise AssertionError(f"flash_attention at {tuple(shape)}: min |o| "
+                             f"{low}, {err} from the f32 plain output")
+    return err, low
 
 
 def card_line() -> str:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -141,6 +142,14 @@ launches: Dict[str, int] = {
     "label_agree_ell_batch": 0,
     "neighbor_min_ell": 0,
 }
+# The executors' dispatch threads launch too: an increment is a
+# read-modify-write, so it takes the lock.
+_launches_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -207,32 +216,37 @@ def _raise_on(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed ({code}: {msg})")
 
 
-def _plan_args(name: str, B: int, R: int, W: int, ell: torch.Tensor):
-    """The C entry's (route, rows_per_block, threads, smem_bytes)."""
-    plan = launch_plan(B, R, W, R + 1)
+def _plan_args(name: str, B: int, R: int, W: int, ell: torch.Tensor,
+               plan: Optional[LaunchPlan] = None):
+    """The C entry's (route, rows_per_block, threads, smem_bytes), of
+    ``plan`` or else of :func:`launch_plan`."""
+    plan = launch_plan(B, R, W, R + 1) if plan is None else plan
     if plan.route == "staged" and ell.data_ptr() % 16:
         raise ValueError(f"{name}: the staged kernel reads ell 16 bytes at a "
                          "time: ell starts at an unaligned offset")
     return plan.args()
 
 
-def _launch_neighbor_min(ell, ranks_p, active_p, B, R, W, name):
-    plan = _plan_args(name, B, R, W, ell)
+def _launch_neighbor_min(ell, ranks_p, active_p, B, R, W, name, plan=None):
+    plan = _plan_args(name, B, R, W, ell, plan)
     out = torch.empty((B, R), dtype=torch.int32, device=ell.device)
     code = _lib().nm_neighbor_min(
         ell.data_ptr(), ranks_p.data_ptr(), active_p.data_ptr(),
         out.data_ptr(), B, R, W, R + 1, *plan, *device_and_stream(ell))
     _raise_on(code, name)
-    launches[name] += 1
+    _count(name)
     return out
 
 
 def neighbor_min_ell_batch(ell: torch.Tensor, ranks_p: torch.Tensor,
-                           active_p: torch.Tensor) -> torch.Tensor:
+                           active_p: torch.Tensor,
+                           plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """(B, R) int32 masked neighbour-min of a bucket (kernel B1).
 
     ``ell`` (B, R, W) int32, ``ranks_p`` (B, R+1) int32, ``active_p``
-    (B, R+1) bool.
+    (B, R+1) bool. ``plan`` forces a route on the card (one of
+    :func:`l2_plan`, :func:`staged_plan`); by default
+    :func:`launch_plan` picks it from the shape.
     """
     B, R, W = _check("neighbor_min_ell_batch", ell, True,
                      ranks_p=(ranks_p, torch.int32),
@@ -240,7 +254,7 @@ def neighbor_min_ell_batch(ell: torch.Tensor, ranks_p: torch.Tensor,
     if ell.device.type == "cpu":
         return _ref.neighbor_min_ref(ell, ranks_p, active_p)
     return _launch_neighbor_min(ell, ranks_p, active_p, B, R, W,
-                                "neighbor_min_ell_batch")
+                                "neighbor_min_ell_batch", plan)
 
 
 def neighbor_min_ell(ell: torch.Tensor, ranks_p: torch.Tensor,
@@ -275,7 +289,7 @@ def label_agree_ell_batch(ell: torch.Tensor,
                                  out.data_ptr(), B, R, W, R + 1, *plan,
                                  *device_and_stream(ell))
     _raise_on(code, "label_agree_ell_batch")
-    launches["label_agree_ell_batch"] += 1
+    _count("label_agree_ell_batch")
     return out
 
 

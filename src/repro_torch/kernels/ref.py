@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function here defines what its kernel in :mod:`.neighbor_min`,
-:mod:`.mis_pivot` or :mod:`.flash_attention` must compute. The wrappers
+:mod:`.agreement`, :mod:`.mis_pivot` or :mod:`.flash_attention` must
+compute. The wrappers
 take these only for tensors on the CPU; the tests hold them against the
 reference's oracles, and ``chip_smoke.py`` holds the CUDA kernels against
 them on the card.
@@ -14,9 +15,26 @@ slot: inactive with rank ``INF``, label ``-1``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 INF_I32 = 2**31 - 1
+
+# Agreement threshold β = BETA_NUM/BETA_DEN of the precluster method:
+# neighbours u, v agree when |N[u] Δ N[v]| < β·max(|N[u]|, |N[v]|) over
+# closed neighbourhoods. Kept rational so the device (int32) and host
+# (int64) comparisons are the same integer predicate.
+BETA_NUM = 2
+BETA_DEN = 5
+
+# Peak bytes the plain agreement pass may hold for its (rows, W, W)
+# candidate lists at once; it walks the flattened (entry, row) axis in
+# chunks that fit. At (R, W) = (2¹⁵, 32) one entry's lists take ~0.4 GiB.
+AGREE_BYTES = 256 << 20
+# Bytes a (row, w, w') candidate costs in the pass: the int32 candidate,
+# two int32 search positions and a bool.
+_AGREE_PAIR_BYTES = 13
 
 
 def _gather(table: torch.Tensor, ell: torch.Tensor):
@@ -147,5 +165,64 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
+def common_neighbours_ref(ell: torch.Tensor,
+                          budget: Optional[int] = None) -> torch.Tensor:
+    """(B, R, W) int32: for every ELL slot (u, w) with neighbour v, the
+    number of non-pad ids of row v that appear in row u (0 at pads).
+
+    The reference looks each of v's ELL ids up in u's sorted ELL row with
+    a left ``searchsorted`` and tests the id found. Here an id is a member
+    when its right and left search positions differ, which is the same
+    test without a gather. The (rows, W, W) candidate lists are built for
+    a chunk of the flattened (entry, row) axis at a time, at most
+    ``budget`` bytes (default :data:`AGREE_BYTES`); the counts do not
+    depend on the chunking.
+    """
+    B, R, W = ell.shape
+    budget = AGREE_BYTES if budget is None else budget
+    dev = ell.device
+    ell_sorted = ell.sort(dim=2).values.reshape(B * R, W)
+    # Rows of every entry plus a pad row R each, flattened: the row of
+    # neighbour id v of entry b is b·(R+1) + v.
+    ell_rows = torch.cat(
+        [ell, ell.new_full((B, 1, W), R)], dim=1).reshape(B * (R + 1), W)
+    base = (torch.arange(B, device=dev, dtype=torch.int64) * (R + 1)
+            ).view(B, 1, 1)
+    gid = (ell.long() + base).reshape(B * R, W)
+    common = torch.empty((B * R, W), dtype=torch.int32, device=dev)
+    rows = max(1, budget // (_AGREE_PAIR_BYTES * W * W))
+    for r0 in range(0, B * R, rows):
+        r1 = min(B * R, r0 + rows)
+        cand = ell_rows[gid[r0:r1]].reshape(r1 - r0, W * W)
+        srt = ell_sorted[r0:r1]
+        lo = torch.searchsorted(srt, cand, out_int32=True)
+        hi = torch.searchsorted(srt, cand, right=True, out_int32=True)
+        member = (hi != lo) & (cand != R)
+        common[r0:r1] = member.view(r1 - r0, W, W).sum(2, dtype=torch.int32)
+        del cand, lo, hi, member
+    return common.view(B, R, W)
+
+
+def agreement_ell_ref(ell: torch.Tensor,
+                      budget: Optional[int] = None) -> torch.Tensor:
+    """The agreement graph's ELL: ``ell`` (B, R, W) with every edge that
+    does not agree replaced by the pad id ``R``. The integer predicate
+    ``BETA_DEN·(du+dv−2·common−2) < BETA_NUM·(max(du, dv)+1)`` is
+    symmetric in (u, v), so the result is undirected. Ids lie in
+    ``[0, R]``."""
+    B, R, W = ell.shape
+    real = ell != R
+    deg = real.sum(dim=2, dtype=torch.int32)                  # (B, R)
+    common = common_neighbours_ref(ell, budget)
+    deg_p = torch.cat([deg, deg.new_zeros((B, 1))], dim=1)
+    dv = torch.gather(deg_p, 1, ell.reshape(B, R * W).long()).view(B, R, W)
+    du = deg.unsqueeze(2)
+    sym_diff = du + dv - 2 * common - 2     # closed nbhds: u∈N[v], v∈N[u]
+    agree = real & (BETA_DEN * sym_diff
+                    < BETA_NUM * (torch.maximum(du, dv) + 1))
+    return torch.where(agree, ell, ell.new_full((), R))
+
+
 __all__ = ["neighbor_min_ref", "label_agree_ref", "mis_pivot_ref",
-           "attention_ref", "INF_I32", "NEG_INF"]
+           "attention_ref", "common_neighbours_ref", "agreement_ell_ref",
+           "INF_I32", "NEG_INF", "BETA_NUM", "BETA_DEN", "AGREE_BYTES"]

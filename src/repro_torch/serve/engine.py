@@ -2,10 +2,10 @@
 
 A copy of the framework-free ``repro/serve/engine.py``. An outer loop
 drives a serving engine through a small API, as JetStream drives its
-``prefill`` / ``generate`` / ``insert`` programs and vLLM its slots. In the
-port the token path (:class:`repro_torch.serve.batching.ContinuousBatcher`)
-implements it; the clustering path's ``ClusterBatcher`` waits for ROADMAP
-A12.
+``prefill`` / ``generate`` / ``insert`` programs and vLLM its slots. Both
+serving paths of the port implement it: the token path
+(:class:`repro_torch.serve.batching.ContinuousBatcher`) and the clustering
+path (:class:`repro_torch.serve.cluster_batcher.ClusterBatcher`).
 
 * ``admit(request)`` — hand one request to the engine. The engine may run
   device work immediately (a bucket filled, a slot freed) and returns any

@@ -48,6 +48,14 @@ SHAPES = [
     (1, 9, 3, 130, 130, 64, True, "float32"),     # odd sizes (padding)
     (1, 4, 4, 64, 64, 128, True, "bfloat16"),     # big head dim
 ]
+# Head dims 80 (zamba2-2.7b) and 160 (stablelm-12b), which the reference's
+# kernel takes and the CUDA kernel has instances for.
+WIDE_SHAPES = [
+    (1, 4, 2, 100, 100, 80, True, "float32"),
+    (1, 4, 2, 100, 100, 80, True, "bfloat16"),
+    (1, 2, 2, 70, 150, 160, True, "float32"),
+    (1, 2, 1, 64, 64, 160, False, "bfloat16"),
+]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -70,7 +78,7 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal,dtype", SHAPES)
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal,dtype", SHAPES + WIDE_SHAPES)
 def test_plain_flash_attention_matches_reference(b, h, kh, sq, sk, d,
                                                  causal, dtype):
     (jq, jk, jv), (q, k, v) = _qkv(b, h, kh, sq, sk, d, dtype,
@@ -88,9 +96,14 @@ def test_plain_flash_attention_matches_reference(b, h, kh, sq, sk, d,
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
+    """On the CPU the plain version takes any head dim, as the reference's
+    kernel does; only the card refuses a head dim without a kernel
+    instance (``tests/test_torch_cuda.py``)."""
     _, (q, k, v) = _qkv(1, 4, 2, 16, 16, 64, "float32", seed=0)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    q48, k48, v48 = (t[..., :48].contiguous() for t in (q, k, v))
+    assert 48 not in fa.HEAD_DIMS
+    assert torch.equal(fa.flash_attention(q48, k48, v48),
+                       ref.attention_ref(q48, k48, v48))
     with pytest.raises(ValueError, match="without a key"):
         fa.flash_attention(q, k[:, :, :8], v[:, :, :8], causal=True)
     with pytest.raises(ValueError, match="no keys"):

@@ -206,14 +206,22 @@ def test_batch_agrees_with_per_graph_port_and_host_cost():
 
 
 def test_batch_refuses_what_is_not_ported():
+    """Every registered method, objective and executor name of the
+    reference resolves; unknown names are refused."""
     g = graph.build_graph(5, ref_graph.path(5), device=CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        batch.correlation_cluster_batch([g], method="precluster", device=CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        batch.correlation_cluster_batch([g], objective="minmax", device=CPU)
-    for name in ("async", "sharded"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            executor.make_executor(name, device=CPU)
+    assert programs.registered_methods() == \
+        ref_programs.registered_methods()
+    assert programs.registered_objectives() == \
+        ref_programs.registered_objectives()
+    with pytest.raises(ValueError, match="supports methods"):
+        batch.correlation_cluster_batch([g], method="cliques", device=CPU)
+    with pytest.raises(ValueError, match="supports objectives"):
+        batch.correlation_cluster_batch([g], objective="nope", device=CPU)
+    assert executor.make_executor("async", device=CPU).name == "async"
+    sharded = executor.make_executor("sharded", device=CPU)
+    assert sharded.name == "sharded" and sharded.devices == [torch.device(CPU)]
+    with pytest.raises(ValueError, match="unknown executor"):
+        executor.make_executor("nope", device=CPU)
     with pytest.raises(ValueError):
         batch.correlation_cluster_batch([g], num_samples=0, device=CPU)
     p1 = plan.plan_graph(g, method="pivot")

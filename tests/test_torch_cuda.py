@@ -2,12 +2,16 @@
 
 Kept free of ``jax`` and ``repro`` so it runs on a GPU machine that has
 only PyTorch: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-B1, B2, the ELL neighbour-min of one graph and the fused per-graph
-PIVOT (B3, both launch routes) are held to their plain PyTorch versions
-with ``torch.equal`` (integer outputs, tolerance 0), and the batch and
-per-graph paths on the card to the same paths on the CPU. B4 is held to its plain version within 2e-5 (f32) and
+B1, B2, the ELL neighbour-min of one graph, the fused per-graph
+PIVOT (B3, both launch routes) and the precluster agreement kernel are held
+to their plain PyTorch versions with ``torch.equal`` (integer outputs,
+tolerance 0), and the batch (pivot and precluster, both objectives) and
+per-graph paths on the card to the same paths on the CPU; the async
+executor keeps two in-flight flushes of one shape on two staging buffers
+and returns from ``submit`` before the flush ends. B4 is held to its plain version within 2e-5 (f32) and
 2e-2 (bf16), the reference's own kernel tolerances (sums in another
-order; a bf16 output may round one unit apart), and the smoke LM's
+order; a bf16 output may round one unit apart), at outputs in
+[4.5, 7.5] within 2e-2 of the plain version's f32 output, and the smoke LM's
 prefill on the card to the CPU's within 1e-4 (two f32 layers).
 """
 
@@ -20,7 +24,11 @@ from repro_torch.core import (PRNGKey, build_graph, correlation_cluster,
 from repro_torch.configs import get_smoke
 from repro_torch.core.graph import random_arboric, star
 from repro_torch.core.mis import random_permutation_ranks_batch
+from repro_torch.core import executor as ex
+from repro_torch.core import plan as tplan
+from repro_torch.kernels import agreement as ag
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import measure
 from repro_torch.kernels import mis_pivot as mp
 from repro_torch.kernels import neighbor_min as nm
 from repro_torch.kernels import ref
@@ -291,6 +299,10 @@ B4_EDGES = [
     (1, 2, 1, 33, 33, 128, False, "float32"),
     (2, 16, 2, 200, 200, 64, True, "float32"),
     (1, 9, 3, 257, 1000, 64, True, "bfloat16"),
+    (1, 4, 2, 100, 161, 80, True, "float32"),      # zamba2-2.7b's head dim
+    (2, 4, 4, 77, 77, 80, True, "bfloat16"),
+    (1, 4, 1, 70, 200, 160, True, "float32"),      # stablelm-12b's
+    (1, 2, 2, 130, 130, 160, False, "bfloat16"),
 ]
 
 
@@ -304,10 +316,34 @@ def test_cuda_flash_attention_edges(cuda, shape):
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == 1
+    assert fa.instance_launches == {(dtype, shape[5]): 1}
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = 2e-5 if dtype == "float32" else 2e-2
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_an_unbuilt_head_dim(cuda):
+    q, k, v = _attention_inputs((1, 2, 2, 16, 16, 48, True, "float32"),
+                                cuda, seed=1)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        fa.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 160])
+def test_cuda_flash_attention_bf16_large_outputs(cuda, d):
+    """bf16 outputs in [4.5, 7.5], where one bf16 unit is 2^-5: within 2e-2
+    of the plain version's f32 output, as only P @ V in f32 precision
+    (P split into bf16 hi and lo) keeps it."""
+    rng = np.random.default_rng(d)
+    shape = (1, 4, 2, 300, 300, d, True, "bfloat16")
+    q, k, v, want = measure.b4_large_output_inputs(shape, rng, cuda)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert measure.B4_TOL["bfloat16"] == 2e-2
+    measure.b4_large_output_check(got, want, shape)
 
 
 @pytest.mark.cuda
@@ -357,3 +393,128 @@ def test_cuda_smoke_prefill_equals_cpu(cuda):
         want_kv = want_caches[name].float()
         diff = (caches[name].cpu().float() - want_kv).abs()
         assert (diff <= want_kv.abs() * 2.0**-7).all()
+
+
+def _clustered(n, rng):
+    """Dense groups of 3–9 vertices with sparse edges across, so that the
+    precluster agreement test passes on many edges."""
+    cuts = np.cumsum(rng.integers(3, 10, n))
+    group = np.searchsorted(cuts, np.arange(n), side="right")
+    u, v = np.triu_indices(n, 1)
+    keep = rng.random(len(u)) < np.where(group[u] == group[v], 0.85, 0.01)
+    return np.stack([u[keep], v[keep]], axis=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["disagree", "minmax"])
+def test_cuda_precluster_and_minmax_equal_cpu(cuda, objective):
+    rng = np.random.default_rng(3)
+    specs = [(n, _clustered(n, rng)) for n in (31, 32, 33, 300, 1100)]
+    specs += [(n, random_arboric(n, 2, rng)[0]) for n in (500, 4097)]
+    keys = [PRNGKey(i) for i in range(len(specs))]
+    out = {}
+    for dev in ("cpu", cuda):
+        gs = [build_graph(n, e, device=dev) for n, e in specs]
+        nm.reset_launch_counts()
+        out[str(dev)] = correlation_cluster_batch(
+            gs, keys=keys, method="precluster", objective=objective,
+            num_samples=3, device=dev)
+        if dev == cuda:
+            assert nm.launches["neighbor_min_ell_batch"] == \
+                3 * len({(r.info["bucket"]) for r in out[str(dev)]})
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert (a.labels == b.labels).all() and a.cost == b.cost
+        assert a.info == b.info
+    assert any(r.info["depth"] > 0 for r in out["cpu"])
+    n, e = specs[3]
+    a = correlation_cluster(build_graph(n, e, device="cpu"),
+                            method="precluster", key=PRNGKey(9),
+                            num_samples=3, device="cpu")
+    b = correlation_cluster(build_graph(n, e, device=cuda),
+                            method="precluster", key=PRNGKey(9),
+                            num_samples=3, device=cuda)
+    assert (a.labels == b.labels).all() and a.cost == b.cost
+    assert a.info == b.info
+
+
+@pytest.mark.cuda
+def test_cuda_async_executor_overlaps_and_keeps_leases_apart(cuda):
+    """Two in-flight flushes of one R = 2^15 shape get two staging buffer
+    generations (pinned), ``submit`` returns before the flush's event has
+    completed, and the results equal the sync executor's."""
+    rng = np.random.default_rng(5)
+    gs = [build_graph(n, random_arboric(n, 2, rng)[0], device=cuda)
+          for n in (30000, 31000, 32000, 32500)]
+    plans = [tplan.plan_graph(g) for g in gs]
+    W = max(p.W for p in plans)
+    plans = [tplan.promote_plan(p, 1 << 15, W) for p in plans]
+    keys = [[PRNGKey(i)] for i in range(4)]
+    pool = tplan.BucketBufferPool(device=cuda)
+    assert pool.pinned
+    asy = ex.AsyncExecutor(device=cuda)
+    h1, _ = ex.pack_and_submit(plans[:2], keys[:2], 1, asy, pool=pool)
+    assert not h1.ready()
+    h2, _ = ex.pack_and_submit(plans[2:], keys[2:], 1, asy, pool=pool)
+    assert pool.leased == 2 and pool.n_buffers == 2
+    got = [h.result() for h in asy.drain()]
+    assert pool.leased == 0
+    assert h1.returned_seconds < h1.wall_seconds
+    sync = ex.SyncExecutor(device=cuda)
+    for h, ps, ks in ((got[0], plans[:2], keys[:2]),
+                      (got[1], plans[2:], keys[2:])):
+        want = ex.pack_and_submit(ps, ks, 1, sync)[0].result()
+        for a, b in zip(h, want):
+            assert (a == b).all()
+    asy.close()
+    shard = ex.ShardedExecutor([cuda])
+    again = ex.pack_and_submit(plans[:2], keys[:2], 1, shard)[0].result()
+    for a, b in zip(again, got[0]):
+        assert (a == b).all()
+    shard.close()
+
+
+def _symmetric_ell(B, R, W, deg, seed):
+    """A batch of random undirected graphs as an ELL (pad id R): cliques of
+    2 to ``deg`` + 1 vertices, most of whose edges agree, plus random edges
+    across while rows have room, each row's slots in random order."""
+    rng = np.random.default_rng(seed)
+    ell = np.full((B, R, W), R, dtype=np.int32)
+    for b in range(B):
+        fill = np.zeros(R, dtype=np.int64)
+        nbrs = [set() for _ in range(R)]
+        start = 0
+        while start < R:
+            size = int(rng.integers(2, deg + 2))
+            members = range(start, min(R, start + size))
+            for u in members:
+                nbrs[u].update(v for v in members if v != u)
+            start += size
+        for _ in range(R // 4):
+            u, v = (int(x) for x in rng.integers(0, R, 2))
+            if u != v and len(nbrs[u]) < W and len(nbrs[v]) < W:
+                nbrs[u].add(v)
+                nbrs[v].add(u)
+        for u in range(R):
+            row = np.array(sorted(nbrs[u])[:W], dtype=np.int32)
+            fill[u] = len(row)
+            ell[b, u, : len(row)] = row
+            ell[b, u] = ell[b, u, rng.permutation(W)]
+    # A neighbour cut by the W limit above leaves an edge one-sided; the
+    # kernel and the plain version take the ELL as it is.
+    return ell
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,W,deg", [(3, 64, 8, 8), (2, 500, 16, 12),
+                                       (2, 300, 48, 40), (1, 200, 64, 64),
+                                       (4, 1024, 4, 4), (1, 32768, 8, 6)])
+def test_cuda_agreement_kernel_equals_plain(cuda, B, R, W, deg):
+    ell = torch.from_numpy(_symmetric_ell(B, R, W, deg, seed=R + W)).to(cuda)
+    ag.reset_launch_counts()
+    got = ag.agreement_ell_batch(ell)
+    torch.cuda.synchronize()
+    assert ag.launches["agreement_ell_batch"] == 1
+    want = ref.agreement_ell_ref(ell)
+    assert torch.equal(got, want)
+    assert (want != R).any(), "no edge agrees: the case tests nothing"
+    assert ag.agreement_ell_batch(ell[:0]).shape == (0, R, W)
