@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--out smoke.json] [--baseline OLD.cu]
-                          [--b4-baseline OLD_FA.cu]
+                          [--b4-baseline OLD_FA.cu] [--ag-baseline OLD_AG.cu]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -59,11 +59,16 @@ Phases, in order; any failure raises and exits non-zero:
 5. clustering serving layer: the main path's workload drawn anew (2,056
    graphs), one arrival trace of 2,467 requests (every graph once, 25 %
    precluster, plus exact repeats of 20 % of them), k = 3:
-   B1 on the precluster agreement graphs (``agree_ell``) of the bucket
-   packing the most ELL and of the R = 2¹⁵ bucket, on every route of the
-   launch plan that takes the shape, ``torch.equal`` to the plain version,
-   with the agreement pass's peak device memory and its share of the
-   bucket program; then (h) ``serve_all`` through
+   the agreement kernel at three precluster buckets (the one packing the
+   most ELL, the R = 2¹⁵ one, the largest at W <= 16) on every route its
+   launch plan can pick, at ``replicas`` 3 (one pass a graph, the rounds
+   body's call) and 1, ``torch.equal`` to the plain version, timed per
+   route with both bounds, its peak device memory and its share of the
+   bucket program (with ``--ag-baseline``, an earlier ``agreement.cu``
+   timed against it at replicas 1, A B B A); B1 on those buckets'
+   agreement graphs (``agree_ell``), on every route of its launch plan
+   that takes the shape, ``torch.equal`` to the plain version; then (h)
+   ``serve_all`` through
    ``ClusterBatcher(executor='async', policy='cost')``, its counts zeroed
    just before and read just after (B1 and B2 must have launched): every
    result equal to ``correlation_cluster_batch`` on the card for its
@@ -88,8 +93,9 @@ Phases, in order; any failure raises and exits non-zero:
    timed at the longest prefill the path gave it (and against the
    ``--b4-baseline`` source there);
 7. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
-   fused kernel, B4; B1 also on the agreement graphs, B4 also at head dims
-   80 and 160), and last
+   fused kernel, B4, the agreement kernel with its route, replicas and
+   both bounds; B1 also on the agreement graphs, B4 also at head dims 80
+   and 160), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -112,10 +118,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels.measure import (  # noqa: E402
-    B4_LARGE_O_SHAPE, B4_SHAPES, B4_TOL, Baseline, FaBaseline, abba_ms,
-    b4_bounds, b4_large_output_check, b4_large_output_inputs, bound_ms,
-    bytes_and_ops, card_line, device_events, device_ms, fmt_ms,
-    kernel_inputs, mis_pivot_bytes_and_ops, mis_pivot_inputs)
+    AgBaseline, B4_LARGE_O_SHAPE, B4_SHAPES, B4_TOL, Baseline, FaBaseline,
+    abba_ms, agreement_bytes_and_ops, b4_bounds, b4_large_output_check,
+    b4_large_output_inputs, bound_ms, bytes_and_ops, card_line,
+    device_events, device_ms, fmt_ms, kernel_inputs,
+    mis_pivot_bytes_and_ops, mis_pivot_inputs)
 
 SOURCE = "src/repro_torch/kernels/csrc/neighbor_min.cu"
 REPLACES = {
@@ -879,23 +886,28 @@ def serving_trace(graphs, lams, rng):
     return rows
 
 
-def agreement_bytes_and_ops(ell):
-    """Bytes (the ELL read once, the agreement ELL written once) and
-    operations of the agreement kernel's function on these inputs: a
-    membership test and a count for each of the W ids of the neighbour
-    row of every non-pad slot."""
-    B, R, W = ell.shape
-    return 2 * 4 * ell.numel(), 2 * W * int((ell != R).sum())
+def agreement_plans(ag, B, R, W, replicas):
+    """Every plan the agreement kernel's launch plan can pick at this shape,
+    by route: the warp route, and the smem route where it can run."""
+    plans = {"warp": ag.warp_plan(B, R, W, replicas)}
+    smem = ag.smem_plan(B, R, W, replicas)
+    if smem is not None:
+        plans["smem"] = smem
+    return plans
 
 
-def precluster_kernel_rows(bench, graphs, lams, dev, card):
+def precluster_kernel_rows(bench, graphs, lams, dev, card, ag_base=None):
     """The precluster agreement pass and B1 on its output, at three buckets
     of the workload under ``method='precluster'``, k = 3: the one packing
     the most ELL, the R = 2^15 one, and the one packing the most ELL at
     W <= 16 (λ = 1 graphs, where edges agree: at λ >= 2 almost none do).
-    The agreement kernel and its plain version, equal by ``torch.equal``,
-    each with its peak device memory and time, and their share of the
-    bucket program; B1 with the first hop's state as its ranks and the
+    The agreement kernel on every route its launch plan can pick, at
+    ``replicas`` 3 (the rounds body's call: one pass a graph) and 1 (every
+    entry), ``torch.equal`` to the plain version, each with its device
+    time and both bounds; its peak device memory at replicas 3 and the
+    plain version's; with ``ag_base`` (an earlier ``agreement.cu``) that
+    kernel against this one at replicas 1, A B B A; their share of the
+    bucket program. B1 with the first hop's state as its ranks and the
     eligibility row as its active mask, on the route its launch plan picks
     and on the other one where that can run, each ``torch.equal`` to the
     plain version."""
@@ -930,36 +942,69 @@ def precluster_kernel_rows(bench, graphs, lams, dev, card):
         torch.cuda.synchronize()
         return out, torch.cuda.max_memory_allocated() - base
 
+    k = 3
     for tag, bucket in picks.items():
         members = buckets[bucket]
         ell, ranks, elig, m_edges, _ = tplan.pack_bucket(
             [plans[gi] for gi in members],
-            [api.sample_keys(trng.PRNGKey(gi), 3) for gi in members], k=3)
+            [api.sample_keys(trng.PRNGKey(gi), k) for gi in members], k=k)
         ell, ranks, elig, m_edges = (torch.from_numpy(a).to(dev) for a in
                                      (ell, ranks, elig, m_edges))
         B, R, W = ell.shape
         want, plain_peak = peak(lambda: ref.agreement_ell_ref(ell))
-        agree_ell, kernel_peak = peak(lambda: ag.agreement_ell_batch(ell))
-        if not torch.equal(agree_ell, want):
-            raise AssertionError(f"the agreement kernel differs from its "
-                                 f"plain version at the {tag} bucket "
-                                 f"{B, R, W}")
-        plain_ms = time_ms(lambda: ref.agreement_ell_ref(ell), calls=1,
-                           samples=3)
+        if not torch.equal(ref.agreement_ell_ref(ell, replicas=k), want):
+            raise AssertionError(f"the {tag} bucket's groups do not carry "
+                                 "one ELL each")
+        agree_ell, kernel_peak = peak(
+            lambda: ag.agreement_ell_batch(ell, replicas=k))
+        if kernel_peak > 4 * ell.numel() + 4 * (B // k) * R:
+            raise AssertionError(f"the agreement kernel's peak memory "
+                                 f"{kernel_peak} B exceeds its output and a "
+                                 f"(B/k, R) scratch at {B, R, W}")
+        # Every route at replicas k and 1, each equal to the plain version.
+        by_route: dict = {}
+        for rep in (k, 1):
+            for route, plan in agreement_plans(ag, B, R, W, rep).items():
+                def fn(plan=plan, rep=rep):
+                    return ag.agreement_ell_batch(ell, replicas=rep,
+                                                  plan=plan)
+                if not torch.equal(fn(), want):
+                    raise AssertionError(
+                        f"the agreement kernel ({route} route, replicas "
+                        f"{rep}) differs from its plain version at the "
+                        f"{tag} bucket {B, R, W}")
+                by_route[f"{route}/{rep}"] = device_ms(fn)
+        chosen = {rep: ag.agreement_launch_plan(B, R, W, rep)
+                  for rep in (k, 1)}
+        bounds = {rep: bound_ms(*agreement_bytes_and_ops(ell, rep))
+                  for rep in (k, 1)}
+        plain_ms = time_ms(lambda: ref.agreement_ell_ref(ell, replicas=k),
+                           calls=1, samples=3)
         program_ms = time_ms(lambda: programs.bucket_impl(
-            ell, ranks, elig, m_edges, k=3, program="precluster"), calls=1,
+            ell, ranks, elig, m_edges, k=k, program="precluster"), calls=1,
             samples=3)
-        nbytes, ops = agreement_bytes_and_ops(ell)
-        bms, by = bound_ms(nbytes, ops)
-        ag_row = {"shape": [B, R, W], "equal": True, "bound_ms": bms,
-                  "bound_by": by, "call_ms": time_ms(
-                      lambda: ag.agreement_ell_batch(ell)),
-                  "ms": device_ms(lambda: ag.agreement_ell_batch(ell)),
-                  "plain_call_ms": plain_ms, "peak_bytes": kernel_peak,
-                  "plain_peak_bytes": plain_peak, "program_ms": program_ms,
-                  "variant": f"warp per row, {ag.blocks(B, R)} blocks"}
-        ag_row["plain_ms"] = device_ms(lambda: ref.agreement_ell_ref(ell),
-                                       calls=1)
+        ag_row = {
+            "shape": [B, R, W], "equal": True, "replicas": k,
+            "route": chosen[k].route, "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1], "bound_ms_replicas_1": bounds[1][0],
+            "call_ms": time_ms(lambda: ag.agreement_ell_batch(
+                ell, replicas=k)),
+            "ms": by_route[f"{chosen[k].route}/{k}"],
+            "ms_replicas_1": by_route[f"{chosen[1].route}/1"],
+            "route_replicas_1": chosen[1].route, "ms_by_route": by_route,
+            "plain_call_ms": plain_ms, "peak_bytes": kernel_peak,
+            "plain_peak_bytes": plain_peak, "program_ms": program_ms,
+            "variant": f"{chosen[k].route} route, replicas {k}, "
+                       f"{chosen[k].blocks} blocks of {chosen[k].threads}"}
+        ag_row["plain_ms"] = device_ms(
+            lambda: ref.agreement_ell_ref(ell, replicas=k), calls=1)
+        if ag_base is not None:
+            if not torch.equal(ag_base(ell), want):
+                raise AssertionError(f"the agreement baseline differs from "
+                                     f"the plain version at {B, R, W}")
+            # Two builds: a profiler session each, A B B A.
+            ag_row["ab_ms"], ag_row["baseline_ms"] = abba_ms(
+                [lambda: ag.agreement_ell_batch(ell), lambda: ag_base(ell)])
         state = torch.where(elig[:, :R], ranks[:, :R], nm.INF)
         state_p = torch.cat([state, state.new_full((B, 1), nm.INF)], 1)
         want_b1 = ref.neighbor_min_ref(agree_ell, state_p, elig)
@@ -985,9 +1030,18 @@ def precluster_kernel_rows(bench, graphs, lams, dev, card):
         print_row(f"B1 agree_ell {tag}", row)
         print(f"    equal on {'+'.join(routes)}; "
               f"{100 * kept:.4f} % of the ELL's edges agree")
-        print(f"  agreement {str((B, R, W)):28s} equal; device ms: kernel "
-              f"{fmt_ms(ag_row['ms'])}, plain {fmt_ms(ag_row['plain_ms'])}, "
-              f"bound {bms:.4f} ({by}); per call back to back: kernel "
+        base = "" if ag_base is None else (
+            f"; A B B A at replicas 1: kernel {fmt_ms(ag_row['ab_ms'])}, "
+            f"baseline {fmt_ms(ag_row['baseline_ms'])}")
+        print(f"  agreement {str((B, R, W)):28s} equal on every route at "
+              f"replicas {k} and 1; device ms: kernel "
+              f"{fmt_ms(ag_row['ms'])} ({ag_row['variant']}), replicas 1 "
+              f"{fmt_ms(ag_row['ms_replicas_1'])} ({chosen[1].route}), by "
+              f"route/replicas " + ", ".join(
+                  f"{name} {fmt_ms(t)}" for name, t in by_route.items())
+              + f"; bound {bounds[k][0]:.4f} ({bounds[k][1]}), replicas 1 "
+              f"{bounds[1][0]:.4f}; plain {fmt_ms(ag_row['plain_ms'])}"
+              f"{base}; per call back to back: kernel "
               f"{fmt_ms(ag_row['call_ms'])}, plain {plain_ms:.3f}; peak "
               f"memory kernel {kernel_peak / 2**20:.1f} MiB, plain "
               f"{plain_peak / 2**20:.1f} MiB; the bucket program "
@@ -1124,7 +1178,7 @@ def submit_return(graphs, lams, dev, card):
     return out
 
 
-def serving_phase(dev, card, seed, bench):
+def serving_phase(dev, card, seed, bench, ag_base=None):
     """The clustering serving layer on the card, at the main path's
     workload: the trace through ``serve_all`` and ``ClusterBatcher``, every
     result against the batch path and 64 against the CPU."""
@@ -1143,7 +1197,7 @@ def serving_phase(dev, card, seed, bench):
     record = {"requests": len(rows), "precluster": n_pre,
               "repeats": len(rows) - len(set(rows))}
     record["agree_rows"] = precluster_kernel_rows(bench, graphs, lams, dev,
-                                                  card)
+                                                  card, ag_base)
     want = batch_results(rows, graphs, lams, dev, "disagree")
 
     # The measured run: async executor, cost policy, counts zeroed just
@@ -1540,6 +1594,11 @@ def main() -> int:
                         help="another csrc/flash_attention.cu whose "
                         "fa_forward takes this checkout's 14 arguments, "
                         "built and timed beside B4 on the same inputs")
+    parser.add_argument("--ag-baseline", type=Path, default=None,
+                        help="another csrc/agreement.cu (none or this "
+                        "checkout's ag_abi_version), built and timed beside "
+                        "the agreement kernel at replicas 1 on the same "
+                        "inputs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card",
@@ -1574,8 +1633,9 @@ def main() -> int:
     t0 = time.perf_counter()
     baseline = Baseline(args.baseline) if args.baseline else None
     fa_base = FaBaseline(args.b4_baseline) if args.b4_baseline else None
+    ag_base = AgBaseline(args.ag_baseline) if args.ag_baseline else None
     logs = _build.build(_build.sources())
-    for extra in (baseline, fa_base):
+    for extra in (baseline, fa_base, ag_base):
         if extra is not None:
             extra.load()
     record["build_s"] = time.perf_counter() - t0
@@ -1706,7 +1766,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. The clustering serving layer.
-    serve_cl = serving_phase(dev, card, args.seed, bench)
+    serve_cl = serving_phase(dev, card, args.seed, bench, ag_base)
     record["cluster_serving"] = serve_cl
     for tag, row in serve_cl["agree_rows"].items():
         kernels.append({
@@ -1732,9 +1792,14 @@ def main() -> int:
             "library_ms": None, "shape": a["shape"],
             "call_ms": a["call_ms"],
             "variant": f"{a['variant']}, {tag} bucket",
+            "replicas": a["replicas"], "route_taken": a["route"],
+            "bound_ms_replicas_1": a["bound_ms_replicas_1"],
+            "ms_replicas_1": a["ms_replicas_1"],
+            "ms_by_route": a["ms_by_route"],
             "peak_bytes": a["peak_bytes"],
             "plain_peak_bytes": a["plain_peak_bytes"],
-            "program_ms": a["program_ms"]})
+            "program_ms": a["program_ms"],
+            **{k: a[k] for k in ("ab_ms", "baseline_ms") if k in a}})
 
     # 6. LM serving path: smollm-135m at full width, f32, random weights.
     cfg = get_config("smollm-135m")

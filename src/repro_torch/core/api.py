@@ -150,7 +150,8 @@ def _precluster(g: Graph, key, num_samples: int, eps: float, lam: int,
     ell = torch.from_numpy(rows.ell).to(dev).expand(k, -1, -1).contiguous()
     elig = torch.from_numpy(rows.elig).to(dev).expand(k, -1).contiguous()
     ranks = torch.from_numpy(rows.ranks).to(dev)
-    labels_k, rounds_k = _precluster_rounds_body(ell, ranks, elig)
+    labels_k, rounds_k = _precluster_rounds_body(ell, ranks, elig,
+                                                 replicas=k)
     labels_k = labels_k[:, : g.n].cpu().numpy()
     rounds_k = rounds_k.cpu().tolist()
     costs = [clustering_cost(g, labels_i) for labels_i in labels_k]

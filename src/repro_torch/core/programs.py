@@ -8,12 +8,16 @@ without knowing what the method computes.
 
 A method provides one function over the packed tensors of a bucket::
 
-    rounds_body(ell, ranks_p, elig_p) -> (labels (B, R) int32, rounds (B,) int32)
+    rounds_body(ell, ranks_p, elig_p, replicas=1)
+        -> (labels (B, R) int32, rounds (B,) int32)
 
 ``ell`` is the (B, R, W) int32 ELL adjacency (pad id ``R``), ``ranks_p``
 the (B, R+1) int32 rank rows (slot R = INF), ``elig_p`` the (B, R+1) bool
 eligibility rows (slot R False). Ineligible and padded vertices are
-labelled with their own index (singletons).
+labelled with their own index (singletons). ``replicas`` = k says the
+batch is groups of k entries with one ELL each (a bucket's best-of-k
+samples, which differ only in their ranks); a body may compute what
+depends on the ELL alone once a group.
 
 An objective provides::
 
@@ -74,8 +78,9 @@ PRECLUSTER_ROUNDS = 3
 
 
 def _pivot_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
-                       elig_p: torch.Tensor):
+                       elig_p: torch.Tensor, replicas: int = 1):
     """MIS rounds until no vertex is undecided, then the PIVOT capture.
+    (Every step reads the ranks, so ``replicas`` changes nothing.)
 
     The reference's ``lax.while_loop`` is a Python loop that tests for an
     undecided vertex after every round. An entry's ``rounds`` grows only
@@ -135,7 +140,7 @@ def _rank_capture(ranks: torch.Tensor, reached: torch.Tensor,
 
 
 def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
-                            elig_p: torch.Tensor):
+                            elig_p: torch.Tensor, replicas: int = 1):
     """Constant-round pre-clustering by neighbourhood agreement.
 
     Three straight-line stages, no data-dependent loop:
@@ -144,7 +149,8 @@ def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
        then the integer agreement predicate
        (:func:`repro_torch.kernels.agreement.agreement_ell_batch`: its
        kernel on the card, the plain version's sorted-row membership tests
-       on the CPU).
+       on the CPU). It depends on the ELL alone, so it runs once a group
+       of ``replicas`` entries; ``B % replicas != 0`` raises.
     2. **Min-rank propagation** — :data:`PRECLUSTER_ROUNDS` static hops of
        per-vertex min over the agreement neighbourhood (kernel B1, the
        state row as its ranks, the eligibility row as its active mask),
@@ -158,7 +164,7 @@ def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
     dev = ell.device
     ranks = ranks_p[:, :R]
     elig = elig_p[:, :R]
-    agree_ell = _ag.agreement_ell_batch(ell)
+    agree_ell = _ag.agreement_ell_batch(ell, replicas=replicas)
     inf_col = torch.full((B, 1), INF_RANK, dtype=torch.int32, device=dev)
     state = torch.where(elig, ranks, inf_col)
     rounds = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -332,14 +338,16 @@ def bucket_impl(ell: torch.Tensor, ranks_p: torch.Tensor,
     """Cluster + cost + select every graph of one shape bucket.
 
     Returns ``(labels (G, R), costs (G,), picked (G,), rounds (G,))``, all
-    int32, for the ``G = B / k`` groups. The first cost minimum wins
+    int32, for the ``G = B / k`` groups, whose k entries carry one ELL
+    each (``pack_bucket``'s layout; the rounds body gets ``replicas=k``).
+    The first cost minimum wins
     (``torch.argmin`` returns the first occurrence), the same rule as the
     per-graph loop's strict ``<``.
     """
     spec = _METHODS[program]
     obj = _OBJECTIVES[objective]
     B, R, W = ell.shape
-    labels, rounds = spec.rounds_body(ell, ranks_p, elig_p)
+    labels, rounds = spec.rounds_body(ell, ranks_p, elig_p, replicas=k)
     costs = obj.cost_pass(ell, labels, m_edges)
     G = B // k
     cost_g = costs.reshape(G, k)

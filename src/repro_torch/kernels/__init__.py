@@ -3,7 +3,9 @@
   csrc/neighbor_min.cu    — CUDA C++ for sm_90a (masked neighbour-min, label
                             agreement over ELL adjacencies; B1, B2)
   csrc/agreement.cu       — CUDA C++ for sm_90a (the precluster method's
-                            neighbourhood agreement over an ELL adjacency)
+                            neighbourhood agreement over an ELL adjacency,
+                            once a group of best-of-k replicas; warp and
+                            smem routes)
   csrc/mis_pivot.cu       — CUDA C++ for sm_90a (every MIS round and the
                             PIVOT capture of one graph's k samples; B3)
   csrc/flash_attention.cu — CUDA C++ for sm_90a (attention forward; B4)
@@ -11,7 +13,7 @@
   neighbor_min.py         — B1, B2 wrappers (device checks, launch counts),
                             their one-graph form and the graph-to-ELL
                             helpers
-  agreement.py            — the agreement kernel's wrapper
+  agreement.py            — the agreement kernel's wrapper and launch plan
   mis_pivot.py            — the B3 wrapper and its launch plan
   flash_attention.py      — the B4 wrapper
   ref.py                  — the plain versions the wrappers use on the CPU

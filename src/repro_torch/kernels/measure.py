@@ -1,15 +1,16 @@
 """Timing and same-run A/B helpers for the kernels on the card.
 
 Shared by ``chip_smoke.py``, ``scripts/ell_route_sweep.py``,
-``scripts/mis_route_sweep.py`` and ``scripts/attention_sweep.py``: the
+``scripts/mis_route_sweep.py``, ``scripts/agreement_sweep.py`` and
+``scripts/attention_sweep.py``: the
 card's name and power limit, device time per call from the profiler, the
 byte and operation bound, the random bucket inputs of the ELL kernels, the
 random graphs and the byte count of the fused per-graph PIVOT (B3), B4's
-shapes, tolerances and bounds,
+shapes, tolerances and bounds, the agreement kernel's byte count,
 :class:`Baseline`, an earlier ``neighbor_min.cu`` built and called beside
-the current one, and :class:`FaBaseline`, the same for
-``flash_attention.cu`` (B4). Nothing here touches the card or ``nvcc`` at
-import time.
+the current one, and :class:`FaBaseline` and :class:`AgBaseline`, the same
+for ``flash_attention.cu`` (B4) and ``agreement.cu``. Nothing here touches
+the card or ``nvcc`` at import time.
 """
 
 from __future__ import annotations
@@ -226,6 +227,17 @@ def mis_pivot_bytes_and_ops(n: int, ids: int, k: int):
             k * ids)
 
 
+def agreement_bytes_and_ops(ell: torch.Tensor, replicas: int = 1):
+    """Bytes and operations the agreement kernel's function must move and
+    do on ``ell`` with ``replicas``: each group's ELL read once
+    (4·numel / replicas bytes), every entry's output written once
+    (4·numel); a membership test and a count for each of the W ids of the
+    neighbour row of every non-pad slot of each group's graph."""
+    B, R, W = ell.shape
+    return (4 * ell.numel() // replicas + 4 * ell.numel(),
+            2 * W * int((ell[::replicas] != R).sum()))
+
+
 def mis_pivot_inputs(n: int, k: int, lam: int, rng, dev, capped=False,
                      edges=None):
     """A graph of ``n`` vertices on ``dev`` (``edges``, by default a random
@@ -335,6 +347,62 @@ class Baseline(_BaselineBuild):
 
     def label_agree(self, ell, labels):
         return self._call(self.lib.nm_label_agree, ell, labels)
+
+
+class AgBaseline(_BaselineBuild):
+    """The agreement kernel built from another ``agreement.cu``, called
+    beside the current one on the same inputs: a source that exports no
+    ``ag_abi_version`` takes (ell, out, B, R, W, beta_num, beta_den, blocks,
+    device, stream) and computes every entry (``replicas`` = 1 only), with
+    the grid its wrapper gave it; one of this checkout's ABI runs under
+    this checkout's launch plan."""
+
+    stem = "agreement_base"
+
+    def load(self):
+        from . import agreement as ag
+
+        lib = self._library()
+        report = getattr(lib, "ag_abi_version", None)
+        if report is None:
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.ag_agreement.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32,
+                                         i32, vp]
+            lib.ag_agreement.restype = i32
+            self.version = 1
+        else:
+            report.argtypes, report.restype = [], ctypes.c_int
+            self.version = report()
+            if self.version != ag.ABI_VERSION:
+                raise ValueError(f"agreement baseline reports ABI "
+                                 f"{self.version}; this checkout calls 1 or "
+                                 f"{ag.ABI_VERSION}")
+            ag.bind(lib)
+        self.lib = lib
+
+    def __call__(self, ell, replicas: int = 1):
+        from . import agreement as ag
+        from .ref import BETA_DEN, BETA_NUM
+        from ._build import device_and_stream
+
+        B, R, W = ell.shape
+        out = torch.empty_like(ell)
+        if self.version == 1:
+            if replicas != 1:
+                raise ValueError("the agreement baseline computes every "
+                                 "entry: replicas=1 only")
+            blocks = max(1, min(-(-(B * R) // 8), ag.SMS * 8))
+            code = self.lib.ag_agreement(
+                ell.data_ptr(), out.data_ptr(), B, R, W, BETA_NUM, BETA_DEN,
+                blocks, *device_and_stream(ell))
+        else:
+            code = self.lib.ag_agreement(
+                ell.data_ptr(), out.data_ptr(), B, R, W, replicas, BETA_NUM,
+                BETA_DEN, *ag.agreement_launch_plan(B, R, W, replicas).args(),
+                *device_and_stream(ell))
+        if code != 0:
+            raise RuntimeError(f"baseline agreement launch failed ({code})")
+        return out
 
 
 class FaBaseline(_BaselineBuild):

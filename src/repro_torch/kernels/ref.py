@@ -203,14 +203,26 @@ def common_neighbours_ref(ell: torch.Tensor,
     return common.view(B, R, W)
 
 
-def agreement_ell_ref(ell: torch.Tensor,
-                      budget: Optional[int] = None) -> torch.Tensor:
+def agreement_ell_ref(ell: torch.Tensor, budget: Optional[int] = None,
+                      replicas: int = 1) -> torch.Tensor:
     """The agreement graph's ELL: ``ell`` (B, R, W) with every edge that
     does not agree replaced by the pad id ``R``. The integer predicate
     ``BETA_DEN·(du+dv−2·common−2) < BETA_NUM·(max(du, dv)+1)`` is
     symmetric in (u, v), so the result is undirected. Ids lie in
-    ``[0, R]``."""
+    ``[0, R]``.
+
+    With ``replicas`` = k the batch is groups of k entries that carry one
+    graph (a bucket's best-of-k samples): ``out[b]`` is the agreement ELL
+    of ``ell[(b // k)·k]``, each group's first entry computed once and
+    repeated. ``B % replicas != 0`` raises.
+    """
     B, R, W = ell.shape
+    if replicas < 1 or B % replicas:
+        raise ValueError(f"agreement_ell_ref: batch of {B} entries is not "
+                         f"whole groups of replicas={replicas}")
+    if replicas > 1:
+        first = agreement_ell_ref(ell[::replicas], budget)
+        return first.repeat_interleave(replicas, dim=0)
     real = ell != R
     deg = real.sum(dim=2, dtype=torch.int32)                  # (B, R)
     common = common_neighbours_ref(ell, budget)

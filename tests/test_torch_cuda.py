@@ -3,8 +3,9 @@
 Kept free of ``jax`` and ``repro`` so it runs on a GPU machine that has
 only PyTorch: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 B1, B2, the ELL neighbour-min of one graph, the fused per-graph
-PIVOT (B3, both launch routes) and the precluster agreement kernel are held
-to their plain PyTorch versions with ``torch.equal`` (integer outputs,
+PIVOT (B3, both launch routes) and the precluster agreement kernel (both
+routes, the smem route's fallback too, at replicas 1 and 3) are held to
+their plain PyTorch versions with ``torch.equal`` (integer outputs,
 tolerance 0), and the batch (pivot and precluster, both objectives) and
 per-graph paths on the card to the same paths on the CPU; the async
 executor keeps two in-flight flushes of one shape on two staging buffers
@@ -504,17 +505,73 @@ def _symmetric_ell(B, R, W, deg, seed):
     return ell
 
 
+def _agreement_plans(B, R, W, replicas):
+    """Every plan the agreement kernel can take at this shape: the launch
+    plan's, the warp route, and where it can run the smem route, also with
+    the least shared memory it takes, which stages about R ids, too few for
+    these graphs (a graph it cannot stage runs on the warp route's code in
+    the same launch)."""
+    plans = {"launch plan": ag.agreement_launch_plan(B, R, W, replicas),
+             "warp": ag.warp_plan(B, R, W, replicas)}
+    if ag.smem_plan(B, R, W, replicas) is not None:
+        plans["smem"] = ag.smem_plan(B, R, W, replicas)
+        plans["smem, graph too large"] = ag.smem_plan(
+            B, R, W, replicas, smem_bytes=ag.smem_least_bytes(R))
+    return plans
+
+
+def _packed_layout(ell):
+    """The rows of ``ell`` laid out as ``pack_bucket`` writes them: the
+    neighbours above u ascending, then those below ascending, pads last."""
+    B, R, W = ell.shape
+    out = np.full_like(ell, R)
+    for b in range(B):
+        for u in range(R):
+            ids = np.sort(ell[b, u][ell[b, u] != R])
+            row = np.concatenate([ids[ids > u], ids[ids <= u]])
+            out[b, u, : len(row)] = row
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["permuted", "packed"])
+@pytest.mark.parametrize("replicas", [1, 3])
 @pytest.mark.parametrize("B,R,W,deg", [(3, 64, 8, 8), (2, 500, 16, 12),
                                        (2, 300, 48, 40), (1, 200, 64, 64),
-                                       (4, 1024, 4, 4), (1, 32768, 8, 6)])
-def test_cuda_agreement_kernel_equals_plain(cuda, B, R, W, deg):
-    ell = torch.from_numpy(_symmetric_ell(B, R, W, deg, seed=R + W)).to(cuda)
-    ag.reset_launch_counts()
-    got = ag.agreement_ell_batch(ell)
-    torch.cuda.synchronize()
-    assert ag.launches["agreement_ell_batch"] == 1
-    want = ref.agreement_ell_ref(ell)
-    assert torch.equal(got, want)
+                                       (4, 1024, 4, 4), (1, 32768, 8, 6),
+                                       (1, 64, 4096, 64), (2, 4096, 32, 30)])
+def test_cuda_agreement_kernel_equals_plain(cuda, B, R, W, deg, replicas,
+                                            layout):
+    """Every route, at ``replicas`` 1 and 3 (groups of identical entries),
+    equal to the plain version; one launch a call; peak memory the output
+    plus at most a (B / replicas, R) int32 scratch. Rows with their slots
+    permuted take the smem route's fallback, rows as ``pack_bucket`` lays
+    them out its staged path; (2, 4096, 32) holds more ids a graph than the
+    default smem block stages."""
+    ell = _symmetric_ell(B, R, W, deg, seed=R + W)
+    if layout == "packed":
+        ell = _packed_layout(ell)
+    ell = torch.from_numpy(ell).to(cuda)
+    ell = ell.repeat_interleave(replicas, dim=0)
+    want = ref.agreement_ell_ref(ell, replicas=replicas)
+    assert torch.equal(want, ref.agreement_ell_ref(ell))
     assert (want != R).any(), "no edge agrees: the case tests nothing"
-    assert ag.agreement_ell_batch(ell[:0]).shape == (0, R, W)
+    if (B, R, W) == (2, 4096, 32):
+        plan = ag.smem_plan(*ell.shape, replicas)
+        assert int((ell[0] != R).sum()) > ag.smem_capacity(plan, R)
+    for name, plan in _agreement_plans(*ell.shape, replicas).items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ag.reset_launch_counts()
+        got = ag.agreement_ell_batch(ell, replicas=replicas, plan=plan)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert ag.launches["agreement_ell_batch"] == 1
+        assert torch.equal(got, want), name
+        assert peak <= got.numel() * 4 + B * R * 4 + 512, name
+        del got
+    assert ag.agreement_ell_batch(ell[:0], replicas=replicas).shape == \
+        (0, R, W)
+    with pytest.raises(ValueError, match="replicas"):
+        ag.agreement_ell_batch(ell[:1], replicas=2)

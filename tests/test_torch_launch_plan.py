@@ -1,4 +1,5 @@
-"""The launch plan of kernels B1–B3 (``neighbor_min.launch_plan``).
+"""The launch plans of kernels B1–B3 (``neighbor_min.launch_plan``) and of
+the precluster agreement kernel (``agreement.agreement_launch_plan``).
 
 The plan is a pure function of the shape ``(B, R, W, S)``, so its rules are
 checked here on the CPU; the kernels that follow it run only on the card
@@ -6,8 +7,10 @@ checked here on the CPU; the kernels that follow it run only on the card
 belongs to exactly one block; a staged block stages whole graphs' state,
 one segment of its rows at a time, in shared memory that holds every graph
 of the segment and stays within what a block may use; staged launches are
-one wave. Also :func:`measure.bind_baseline`, which picks the argument
-list of an earlier kernel library from the ABI version it reports.
+one wave. The agreement plan fits the card (two smem blocks an SM, the
+fallback's bitmaps in the ids' room) and takes the smem route only where
+its rows fit a warp. Also :func:`measure.bind_baseline`, which picks the
+argument list of an earlier kernel library from the ABI version it reports.
 """
 
 import ctypes
@@ -16,6 +19,7 @@ import types
 import numpy as np
 import pytest
 
+from repro_torch.kernels import agreement as ag
 from repro_torch.kernels import measure
 from repro_torch.kernels import neighbor_min as nm
 
@@ -198,3 +202,69 @@ def test_baseline_binds_the_abi_its_library_reports():
 def test_baseline_refuses_an_abi_it_cannot_call(version):
     with pytest.raises(ValueError):
         measure.bind_baseline(_fake_lib(version))
+
+
+# ---------------------------------------------------------------------------
+# The agreement kernel's launch plan (``agreement.agreement_launch_plan``).
+# ---------------------------------------------------------------------------
+
+# (B, R, W, replicas): the smoke's precluster buckets, narrow and wide
+# rows, few graphs, R = 2^15, W = 4096.
+AG_SHAPES = [(768, 4096, 32, 3), (768, 4096, 16, 3), (24, 32768, 32, 3),
+             (768, 4096, 32, 1), (192, 1024, 8, 3), (3, 64, 4, 3),
+             (8, 200, 64, 1), (2, 64, 4096, 1), (96, 8192, 16, 3),
+             (1536, 256, 4, 3), (0, 64, 8, 1)]
+
+
+@pytest.mark.parametrize("shape", AG_SHAPES)
+def test_agreement_plan_fits_the_card(shape):
+    B, R, W, rep = shape
+    p = ag.agreement_launch_plan(B, R, W, rep)
+    assert p.route in ag.ROUTES and p.blocks >= 1
+    assert p.smem_bytes <= nm.SMEM_BYTES_MAX
+    if p.route == "warp":
+        assert p.threads == 32 * ag.WARP_WARPS
+        # A warp a row, a bitmap of R bits a warp; no more blocks than
+        # rows need, eight an SM at most.
+        assert p.smem_bytes == ag.WARP_WARPS * -(-R // 32) * 4
+        assert p.blocks <= max(1, -(-(B // rep) * R // ag.WARP_WARPS))
+        assert p.blocks <= ag.SMS * ag.WARP_BLOCKS_PER_SM
+    else:
+        # A block a graph, two an SM: rows no wider than a warp, and the
+        # staged rows' fixed part leaves room for the ids.
+        assert W <= ag.SMEM_MAX_WIDTH and R <= ag.SMEM_MAX_R
+        assert p.threads == 32 * ag.SMEM_WARPS
+        assert p.blocks == min(B // rep, 2 * ag.SMS)
+        assert 2 * (p.smem_bytes + 1024 + 8) <= 233_472
+        assert p.smem_bytes >= ag.smem_least_bytes(R)
+        assert ag.smem_capacity(p, R) >= R
+
+
+def test_agreement_plan_is_a_function_of_shape():
+    for shape in AG_SHAPES:
+        assert ag.agreement_launch_plan(*shape) == \
+            ag.agreement_launch_plan(*shape)
+
+
+@pytest.mark.parametrize("shape", [(24, 32768, 32, 3), (8, 200, 64, 1),
+                                   (2, 64, 4096, 1), (96, 16384, 16, 3)])
+def test_agreement_smem_route_refuses_what_it_cannot_stage(shape):
+    """Rows wider than a warp, and graphs whose fixed part (meta and agree
+    words) leaves no room for the fallback's bitmaps, take the warp
+    route."""
+    assert ag.smem_plan(*shape) is None
+    assert ag.agreement_launch_plan(*shape).route == "warp"
+
+
+def test_agreement_plan_of_the_smoke_buckets():
+    """The smoke's 768-entry buckets stage their graphs; the R = 2^15
+    bucket, whose rows do not fit, and launches of few graphs take the
+    warp route."""
+    assert ag.agreement_launch_plan(768, 4096, 32, 3).route == "smem"
+    assert ag.agreement_launch_plan(768, 4096, 16, 3).route == "smem"
+    assert ag.agreement_launch_plan(24, 32768, 32, 3).route == "warp"
+    assert ag.agreement_launch_plan(3, 64, 4, 3).route == "warp"
+    # A smaller block stages fewer ids.
+    small = ag.smem_plan(768, 4096, 32, 3, smem_bytes=50_000)
+    assert ag.smem_capacity(small, 4096) < \
+        ag.smem_capacity(ag.smem_plan(768, 4096, 32, 3), 4096)

@@ -203,3 +203,150 @@ def test_chunked_agreement_pass_equals_one_walk(budget):
     assert torch.equal(chunked, whole)
     assert torch.equal(ref.agreement_ell_ref(t, budget=budget),
                        agreement.agreement_ell_batch(t))
+
+
+# ---------------------------------------------------------------------------
+# One agreement pass a group of replicas (``replicas`` = k).
+# ---------------------------------------------------------------------------
+
+
+def _port_bucket(ns, k, seed, lam=1, prebuilt=False, staging=None):
+    """The port's ``pack_bucket`` on clustered graphs of ``ns`` vertices
+    (λ = 1, so that edges agree), promoted to one bucket; the group axis
+    pads to a power of two."""
+    rng = np.random.default_rng(seed)
+    gs = [graph.build_graph(n, clustered_edges(n, rng), device=CPU)
+          for n in ns]
+    plans = [plan.plan_graph(g, method="precluster", lam=lam) for g in gs]
+    R, W = max(p.R for p in plans), max(p.W for p in plans)
+    plans = [plan.promote_plan(p, R, W) for p in plans]
+    keys = [api.sample_keys(_words(jax.random.PRNGKey(seed + i)), k)
+            for i in range(len(plans))]
+    if prebuilt:
+        for p, ks in zip(plans, keys):
+            p.rows = plan.build_packed_rows(p, ks)
+    return plan.pack_bucket(plans, [None if prebuilt else ks for ks in keys],
+                            k=k, staging=staging)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("R", [16, 64])
+def test_agreement_once_a_group_equals_every_entry(R, k):
+    """At n = R−1, R, R+1 (two buckets promoted to one), one pass a group
+    of k replicas equals the pass over every entry, in the plain version
+    and through the wrapper; λ = 1 clustered graphs, so edges agree."""
+    ell = torch.from_numpy(_port_bucket([R - 1, R, R + 1], k, seed=R)[0])
+    every = ref.agreement_ell_ref(ell)
+    assert (every != ell.shape[1]).any(), "no edge agrees"
+    assert torch.equal(ref.agreement_ell_ref(ell, replicas=k), every)
+    assert torch.equal(agreement.agreement_ell_batch(ell, replicas=k), every)
+
+
+@pytest.mark.parametrize("prebuilt", [False, True])
+@pytest.mark.parametrize("k", [1, 3])
+def test_pack_bucket_gives_a_group_one_ell(k, prebuilt):
+    """The contract ``replicas`` leans on: the k entries of a group carry
+    identical ELLs and the groups added up to a power of two are all pad,
+    whether the rows are scattered at the flush or prebuilt at admission,
+    and when a staging buffer that held a larger flush is refilled."""
+    ns = [20, 31, 9]
+    ell = _port_bucket(ns, k, seed=2, prebuilt=prebuilt)[0]
+    B, R, W = ell.shape
+    assert B == 4 * k
+    groups = ell.reshape(4, k, R, W)
+    assert (groups == groups[:, :1]).all()
+    assert (groups[len(ns):] == R).all() and (groups[:len(ns)] != R).any()
+    # The same staging buffer, first filled by four graphs, then by three.
+    staging = {"ell": np.empty((4 * k, R, W), np.int32),
+               "ranks": np.empty((4 * k, R + 1), np.int32),
+               "elig": np.empty((4 * k, R + 1), bool),
+               "m_edges": np.empty((4 * k,), np.int32)}
+    _port_bucket(ns + [30], k, seed=3, prebuilt=prebuilt, staging=staging)
+    again = _port_bucket(ns, k, seed=2, prebuilt=prebuilt,
+                         staging=staging)[0]
+    assert (again == ell).all()
+
+
+def _staged_form(row, R):
+    """Whether an ELL row is as the agreement kernel's smem route stages
+    it: its ids first, then pads, the ids ascending up to one rotation."""
+    du = int((row != R).sum())
+    ids = row[:du]
+    if (row[du:] != R).any() or ((ids < 0) | (ids >= R)).any():
+        return False
+    desc = int((ids[:-1] > ids[1:]).sum())
+    return desc == 0 or (desc == 1 and ids[-1] <= ids[0])
+
+
+@pytest.mark.parametrize("prebuilt", [False, True])
+def test_pack_bucket_rows_are_ascending_up_to_a_rotation(prebuilt):
+    """The layout the smem route's staged path leans on (other rows take
+    its fallback): every row ``pack_bucket`` writes holds the neighbours
+    above u ascending, then those below ascending, then pads."""
+    for seed, ns in ((2, [20, 31, 9]), (5, [60, 64, 65]), (7, [130])):
+        ell = _port_bucket(ns, 1, seed=seed, lam=2, prebuilt=prebuilt)[0]
+        B, R, W = ell.shape
+        for b in range(B):
+            for u in range(R):
+                row = ell[b, u]
+                assert _staged_form(row, R), (b, u, row)
+                ids = row[row != R]
+                k = int((ids > u).sum())
+                assert (ids[:k] > u).all() and (ids[k:] < u).all()
+    # And what takes the fallback.
+    assert not _staged_form(np.array([3, 1, 4, 2, 8]), 8)   # two descents
+    assert not _staged_form(np.array([3, 4, 1, 5, 8]), 8)   # no rotation
+    assert not _staged_form(np.array([5, 8, 2, 8]), 8)      # a pad inside
+    assert _staged_form(np.array([5, 7, 1, 2, 8, 8]), 8)    # one rotation
+
+
+def test_agreement_refuses_a_batch_of_partial_groups():
+    ell = torch.from_numpy(_port_bucket([20, 31, 9], 3, seed=2)[0])
+    for fn in (ref.agreement_ell_ref, agreement.agreement_ell_batch):
+        with pytest.raises(ValueError, match="replicas=5"):
+            fn(ell, replicas=5)
+        with pytest.raises(ValueError, match="replicas=0"):
+            fn(ell, replicas=0)
+    ranks = torch.zeros((12, ell.shape[1] + 1), dtype=torch.int32)
+    elig = torch.zeros((12, ell.shape[1] + 1), dtype=torch.bool)
+    with pytest.raises(ValueError, match="replicas=5"):
+        programs._precluster_rounds_body(ell, ranks, elig, replicas=5)
+
+
+@pytest.mark.parametrize("objective", ["disagree", "minmax"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_precluster_bucket_impl_with_replicas_matches_reference(k,
+                                                                objective):
+    """``bucket_impl(program='precluster')``, whose rounds body gets
+    ``replicas=k``, equals the reference's bucket program on its packed
+    inputs; and the port's sharded executor over two ``"cpu"`` devices,
+    which cuts the batch at group boundaries, gives the same winners."""
+    specs = [(n, clustered_edges(n, np.random.default_rng(n)))
+             for n in (20, 31, 9, 28)]
+    plans_r, keys_r, (ell, ranks, elig, m_edges, _) = _packed(specs, k,
+                                                              seed=40)
+    want = jax.jit(functools.partial(
+        ref_programs.bucket_impl, k=k, use_kernel=False, block_rows=None,
+        program="precluster", objective=objective))(ell, ranks, elig,
+                                                    m_edges)
+    want = [np.asarray(x) for x in want]
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (ell, ranks, elig, m_edges)]
+    got = programs.bucket_impl(*t, k=k, program="precluster",
+                               objective=objective)
+    for x, y in zip(want, got):
+        assert y.dtype == torch.int32 and (x == y.numpy()).all()
+    from repro_torch.core.executor import ShardedExecutor, pack_and_submit
+
+    gs = [graph.build_graph(n, e, device=CPU) for n, e in specs]
+    plans_t = [plan.plan_graph(g, method="precluster") for g in gs]
+    R, W = ell.shape[1:]
+    plans_t = [plan.promote_plan(p, R, W) for p in plans_t]
+    keys_t = [api.sample_keys(_words(jax.random.PRNGKey(40 + i)), k)
+              for i in range(len(plans_t))]
+    two = ShardedExecutor([CPU, CPU])
+    handle, _ = pack_and_submit(plans_t, keys_t, k, two, objective=objective)
+    sharded = handle.result()
+    two.close()
+    for x, y in zip(want, sharded):
+        assert (x[: len(specs)] == np.asarray(y)[: len(specs)]).all()
