@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--out smoke.json] [--baseline OLD.cu]
                           [--b4-baseline OLD_FA.cu] [--ag-baseline OLD_AG.cu]
+                          [--b3-baseline OLD_MP.cu]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -24,7 +25,14 @@ Phases, in order; any failure raises and exits non-zero:
    at k = 3, 60,000 above a block's shared memory, a star whose hub the cap
    leaves out, and k = 1), each route that takes the shape held to the
    plain version with ``torch.equal`` on status, labels and rounds, and the
-   planned route timed with its bound, registers and spills; B4
+   planned route timed with its bound, registers and spills (with
+   ``--b3-baseline``, an earlier ``mis_pivot.cu`` held to the same plain
+   version and timed against it at every shape, A B B A); B3's window mode
+   (Algorithm 1's ``_run_window``) at n = 4,096, 32,768 and 60,000: the
+   upper half of the ranks from scratch (its winners must remove vertices
+   below the window), an empty window after it and [0, n), each route that
+   takes the shape held to the plain version with ``torch.equal``, the
+   planned route timed against its byte bound with registers and spills; B4
    ``flash_attention`` at the reference's kernel-test shapes, at
    smollm-135m prefill shapes (S = 24, 512, 2048; f32 and bf16), at a
    batch of eight 2048-token prefills and at 1024-token prefills with head
@@ -92,10 +100,26 @@ Phases, in order; any failure raises and exits non-zero:
    steps; (g) ``repro_torch.launch.serve.run`` on the card. B4 is then
    timed at the longest prefill the path gave it (and against the
    ``--b4-baseline`` source there);
-7. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
-   fused kernel, B4, the agreement kernel with its route, replicas and
-   both bounds; B1 also on the agreement graphs, B4 also at head dims 80
-   and 160), and last
+7. the paper's other algorithms, each against the same call on the CPU:
+   (a) ``correlation_cluster(method='pivot_phased', num_samples=3)`` on 8
+   random λ-arboric graphs (n 4,096 and 32,768, λ 1–3), labels, cost and
+   info with the ledger equal, B3's window mode launched and the fused
+   PIVOT not (counts zeroed just before, read just after), blocking syncs;
+   (b) ``algorithm1(subroutine='alg2')`` at n = 32,768, status, rounds and
+   ledger equal, then the window mode timed on the first prefix Algorithm
+   1 gives that graph; (c) ``correlation_cluster(lam=None)`` at
+   n = 262,144 (the parallel degeneracy peel); (d) ``distributed_pivot``,
+   raw and capped, packed and not, on an NCCL group of world size 1, equal
+   to B3 on the same edge-masked graph, with rounds and all-reduce bytes a
+   round, and ``correlation_cluster(distributed=True)`` for ``pivot`` and
+   ``pivot_raw`` equal to the single-device call; (e) ``forest_exact`` and
+   ``forest_approx`` on a random forest of n = 100,000 (partner and rounds
+   of the augmenting matching equal, the approx/exact cost ratio); (f)
+   ``cliques`` on 8,000 disjoint cliques plus noise; walls per method;
+8. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
+   fused kernel and as the window mode, B4, the agreement kernel with its
+   route, replicas and both bounds; B1 also on the agreement graphs, B4
+   also at head dims 80 and 160), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -121,8 +145,8 @@ from repro_torch.kernels.measure import (  # noqa: E402
     AgBaseline, B4_LARGE_O_SHAPE, B4_SHAPES, B4_TOL, Baseline, FaBaseline,
     abba_ms, agreement_bytes_and_ops, b4_bounds, b4_large_output_check,
     b4_large_output_inputs, bound_ms, bytes_and_ops, card_line,
-    device_events, device_ms, fmt_ms, kernel_inputs,
-    mis_pivot_bytes_and_ops, mis_pivot_inputs)
+    device_events, device_ms, fmt_ms, kernel_inputs, MpBaseline,
+    mis_pivot_bytes_and_ops, mis_pivot_inputs, window_rows)
 
 SOURCE = "src/repro_torch/kernels/csrc/neighbor_min.cu"
 REPLACES = {
@@ -138,6 +162,12 @@ B3_REPLACES = "src/repro/kernels/neighbor_min.py:49"
 # λ-arboric graphs under the degree cap 12·λ at the per-graph sizes, one
 # above a block's shared memory (the grid route by size), a star whose hub
 # of degree n - 1 the cap leaves out, and one sample.
+# B3's window mode replaces Algorithm 1's _run_window, one jitted
+# while_loop a window on the TPU.
+B3_WINDOW_REPLACES = "src/repro/core/phases.py:96-119"
+# Window-mode shapes of phase 3: n on the block route and on the grid
+# route (one above a block's shared memory), λ = 2.
+B3_WINDOW_NS = (4096, 32768, 60000)
 B3_SHAPES = [("arboric", 64, 2, 3), ("arboric", 4096, 2, 3),
              ("arboric", 32768, 2, 3), ("arboric", 60000, 2, 3),
              ("star", 32768, 1, 3), ("arboric", 4096, 2, 1)]
@@ -419,13 +449,62 @@ def print_b4_row(row):
 
 
 class MisBench:
-    """Holds kernel B3 (``mis_pivot``) to its plain version on every route
-    that takes a shape and times the route its plan picks."""
+    """Holds kernel B3 (``mis_pivot``) and its window mode to their plain
+    versions on every route that takes a shape and times the route the
+    plan picks; with an :class:`MpBaseline`, also times an earlier
+    ``mis_pivot.cu`` on the same inputs, A B B A."""
 
-    def __init__(self, mp, ref, ptxas):
+    def __init__(self, mp, ref, ptxas, baseline=None):
         self.mp, self.ref = mp, ref
         self.ptxas = {r["function"]: r for r in ptxas}
+        self.baseline = baseline
         self.max_err = 0
+
+    def _row(self, plan, shape, routes, nbytes_ops, instance):
+        bms, by = bound_ms(*nbytes_ops)
+        regs = self.ptxas.get(f"{instance}_{plan.route}", {})
+        return {"shape": shape, "variant": plan.route,
+                "threads": plan.threads, "blocks": plan.blocks,
+                "equal_on": routes, "bound_ms": bms, "bound_by": by,
+                "registers": regs.get("registers"),
+                "spill_bytes": regs.get("spill_stores", 0)
+                + regs.get("spill_loads", 0) if regs else None}
+
+    def run_window(self, g, ranks, status, lo, hi, timed=True):
+        """B3's window mode from ``status`` over ``[lo, hi)``: the row and
+        the plain version's (status, rounds)."""
+        mp, ref = self.mp, self.ref
+        n = g.n
+        args = (g.row_offsets, g.dst, ranks, status, lo, hi)
+        want = ref.mis_window_ref(*args)
+        routes = []
+        for plan in (mp.block_plan(1, n), mp.grid_plan(1, n)):
+            if plan is None:
+                continue
+            got = mp.mis_window_csr(*args, plan=plan)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"mis_window ({plan.route} route) "
+                                     f"differs from its plain version at "
+                                     f"n = {n}, [{lo}, {hi})")
+            routes.append(plan.route)
+        plan = mp.mis_launch_plan(1, n)
+        row = self._row(plan, [n, g.dst.numel(), lo, hi], routes,
+                        mis_pivot_bytes_and_ops(
+                            n, g.dst.numel(), 1,
+                            window=window_rows(g, ranks, status, lo, hi)),
+                        "mis_window")
+        row["rounds"] = int(want[1][0])
+        if timed:
+            def kernel():
+                return mp.mis_window_csr(*args)
+
+            def plain():
+                return ref.mis_window_ref(*args)
+            row["call_ms"] = time_ms(kernel)
+            row["ms"] = device_ms(kernel)
+            row["plain_ms"] = device_ms(plain, calls=3)
+        return row, want
 
     def run(self, g, ranks, eligible, timed=True):
         mp, ref = self.mp, self.ref
@@ -448,15 +527,10 @@ class MisBench:
                                      f"(k, n, 2m) = {(k, n, g.dst.numel())}")
             routes.append(plan.route)
         plan = mp.mis_launch_plan(k, n)
-        rounds = want[2].tolist()
-        bms, by = bound_ms(*mis_pivot_bytes_and_ops(n, g.dst.numel(), k))
-        regs = self.ptxas.get(f"mis_pivot_{plan.route}", {})
-        row = {"shape": [k, n, g.dst.numel()], "variant": plan.route,
-               "threads": plan.threads, "blocks": plan.blocks,
-               "equal_on": routes, "rounds": rounds, "bound_ms": bms,
-               "bound_by": by, "registers": regs.get("registers"),
-               "spill_bytes": regs.get("spill_stores", 0)
-               + regs.get("spill_loads", 0) if regs else None}
+        row = self._row(plan, [k, n, g.dst.numel()], routes,
+                        mis_pivot_bytes_and_ops(n, g.dst.numel(), k),
+                        "mis_pivot")
+        row["rounds"] = want[2].tolist()
         if timed:
             def kernel():
                 return mp.mis_pivot_csr(*args)
@@ -466,11 +540,19 @@ class MisBench:
             row["call_ms"] = time_ms(kernel)
             row["ms"] = device_ms(kernel)
             row["plain_ms"] = device_ms(plain, calls=3)
+            if self.baseline is not None:
+                got = self.baseline(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError("the B3 baseline differs from the "
+                                         "plain version")
+                row["ab_ms"], row["baseline_ms"] = abba_ms(
+                    [kernel, lambda: self.baseline(*args)])
         return row
 
 
-def print_b3_row(row):
-    line = (f"  mis_pivot (k, n, 2m) {str(tuple(row['shape'])):22s} "
+def print_b3_row(row, name="mis_pivot (k, n, 2m)"):
+    line = (f"  {name} {str(tuple(row['shape'])):22s} "
             f"{row['variant']:5s} ({row['threads']} threads x "
             f"{row['blocks']} blocks; {row['registers']} registers, spill "
             f"{row['spill_bytes']} B) equal on {'+'.join(row['equal_on'])};"
@@ -478,11 +560,40 @@ def print_b3_row(row):
             f"{fmt_ms(row.get('ms'))}, plain {fmt_ms(row.get('plain_ms'))}, "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']}); per call back "
             f"to back: kernel {fmt_ms(row.get('call_ms'))}")
+    if "baseline_ms" in row:
+        line += (f"; A/B (ABBA) kernel {fmt_ms(row['ab_ms'])} vs baseline "
+                 f"{fmt_ms(row['baseline_ms'])}")
     if "host_loop_ms" in row:
         line += (f"; the earlier host loop on the same ranks: device "
                  f"{fmt_ms(row['host_loop_ms'])}, per call "
                  f"{fmt_ms(row['host_loop_call_ms'])}")
     print(line)
+
+
+def b3_window_rows(b3bench, rng, dev):
+    """B3's window mode at ``B3_WINDOW_NS`` on three windows each: the
+    upper half of the ranks from scratch (its winners remove undecided
+    vertices below it, which must happen), an empty window after it, and
+    [0, n) from scratch; each on every route that takes the shape, equal
+    to the plain version, timed on the planned route."""
+    rows = []
+    for n in B3_WINDOW_NS:
+        g, ranks, _ = mis_pivot_inputs(n, 1, 2, rng, dev)
+        ranks = ranks[0]
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        row, (after, _) = b3bench.run_window(g, ranks, zeros, n // 2, n)
+        hit = int(((after == 2) & (ranks < n // 2)).sum())
+        if hit == 0:
+            raise AssertionError("the upper-half window removed no vertex "
+                                 "below it")
+        row["hit_outside"] = hit
+        rows.append(row)
+        rows.append(b3bench.run_window(g, ranks, after, n // 4, n // 4)[0])
+        rows.append(b3bench.run_window(g, ranks, zeros, 0, n)[0])
+        for r in rows[-3:]:
+            print_b3_row(r, "mis_window (n, 2m, lo, hi)")
+        torch.cuda.empty_cache()
+    return rows
 
 
 def print_row(name, row):
@@ -1579,6 +1690,281 @@ def entry_point_check(card):
     return {"wall_s": wall, "launches": dict(fa.launches)}
 
 
+# The paper's algorithms (phase 7): pivot_phased on random λ-arboric
+# graphs (n, λ), as a caller of single requests sends them; lam=None above
+# the 200,000-vertex cut of the exact degeneracy; forests; disjoint cliques
+# of 1-12 vertices with noise edges between them.
+PAPER_GRAPHS = [(4096, 1), (4096, 2), (4096, 3), (32768, 1), (32768, 2),
+                (32768, 3), (4096, 2), (32768, 2)]
+PAPER_ALG2_N = 32768
+PAPER_LARGE_N = 262_144
+PAPER_FOREST_N = 100_000
+PAPER_CLIQUES = 8000
+
+
+def _same_result(a, b) -> bool:
+    return bool((a.labels == b.labels).all()) and (a.cost, a.method, a.info) \
+        == (b.cost, b.method, b.info)
+
+
+def _ledger_rows(ledger):
+    import dataclasses
+
+    return ([dataclasses.astuple(p) for p in ledger.phases],
+            ledger.extra_rounds, ledger.total_rounds, ledger.summary())
+
+
+def paper_phase(dev, card, seed, bench):
+    """(7) The paper's other algorithms through ``correlation_cluster`` on
+    ``dev``, each against the same call on the CPU: ``pivot_phased``
+    (B3's window mode, its counts zeroed just before and read just after),
+    ``algorithm1(subroutine='alg2')``, ``lam=None`` at 262,144 vertices,
+    the edge-sharded engine on an NCCL group of world size 1 against the
+    single-device engine (B3), the forest methods and ``cliques``. Returns
+    the record, with B3's window-mode row timed on the phased path's
+    first window of the alg2 graph."""
+    from repro_torch.core import api, forest, phases
+    from repro_torch.core.graph import (build_graph, disjoint_cliques,
+                                        random_arboric, random_forest)
+    from repro_torch.core.mis import random_permutation_ranks
+    from repro_torch.core.rng import PRNGKey
+    from repro_torch.kernels import mis_pivot as mp
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng([seed, 7])
+    rec: dict = {"walls_s": {}, "syncs": {}}
+
+    def both(name, fn, count_sync=True):
+        """fn(device) on dev (timed) and on the CPU; returns both results."""
+        sync(dev)
+        t0 = time.perf_counter()
+        got = fn(dev)
+        sync(dev)
+        rec["walls_s"][name] = time.perf_counter() - t0
+        if count_sync and dev.type == "cuda":
+            rec["syncs"][name] = count_syncs(lambda: fn(dev))
+        t0 = time.perf_counter()
+        want = fn(cpu)
+        rec["walls_s"][name + "_cpu"] = time.perf_counter() - t0
+        return got, want
+
+    # (a) pivot_phased, best-of-3, on 8 graphs.
+    edges = [random_arboric(n, lam, rng)[0] for n, lam in PAPER_GRAPHS]
+
+    def phased(device):
+        gs = [build_graph(n, e, device=device)
+              for (n, _), e in zip(PAPER_GRAPHS, edges)]
+        mp.reset_launch_counts()
+        out = [api.correlation_cluster(g, method="pivot_phased", lam=lam,
+                                       key=PRNGKey(1000 + i), num_samples=3,
+                                       device=device)
+               for i, (g, (_, lam)) in enumerate(zip(gs, PAPER_GRAPHS))]
+        return out, dict(mp.launches)
+
+    (got, launches), (want, _) = both("pivot_phased", phased)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not _same_result(a, b):
+            raise AssertionError(f"(7a) pivot_phased graph {i} differs on "
+                                 f"{dev} from the CPU")
+    if dev.type == "cuda" and (launches["mis_window"] == 0
+                               or launches["mis_pivot"] != 0):
+        raise AssertionError(f"(7a) pivot_phased launched {launches}: B3's "
+                             "window mode (and not the fused PIVOT) expected")
+    rec["pivot_phased"] = {
+        "graphs": len(got), "launches": launches,
+        "mpc_rounds": [r.info["mpc_rounds"] for r in got],
+        "depth": [r.info["depth"] for r in got]}
+    print(f"  (7a) pivot_phased, k = 3, on {len(got)} graphs (n, λ) "
+          f"{PAPER_GRAPHS}: equal to the CPU (labels, cost, info with the "
+          f"ledger); {rec['walls_s']['pivot_phased']:.3f} s on {dev.type}, "
+          f"{rec['walls_s']['pivot_phased_cpu']:.3f} s on the CPU; launches "
+          f"{launches}; blocking syncs {rec['syncs'].get('pivot_phased')}  "
+          f"[{card}]")
+
+    # (b) Algorithm 1 with Algorithm 2's chunks on one graph.
+    e2 = random_arboric(PAPER_ALG2_N, 2, rng)[0]
+
+    def alg2(device):
+        g = build_graph(PAPER_ALG2_N, e2, device=device)
+        ranks = random_permutation_ranks(PAPER_ALG2_N, PRNGKey(77),
+                                         device=device)
+        mp.reset_launch_counts()
+        state, _, ledger = phases.algorithm1(g, ranks=ranks,
+                                             subroutine="alg2")
+        return state, ledger, dict(mp.launches)
+
+    (s1, l1, launches), (s2, l2, _) = both("algorithm1_alg2", alg2)
+    if not (torch.equal(s1.status.cpu(), s2.status) and s1.rounds ==
+            s2.rounds and _ledger_rows(l1) == _ledger_rows(l2)):
+        raise AssertionError("(7b) algorithm1(alg2) differs from the CPU")
+    chunks = sum(p.chunks for p in l1.phases)
+    rec["algorithm1_alg2"] = {"n": PAPER_ALG2_N, "chunks": chunks,
+                              "launches": launches,
+                              "ledger": l1.summary(), "rounds": s1.rounds}
+    print(f"  (7b) algorithm1(alg2) at n = {PAPER_ALG2_N}: equal to the CPU "
+          f"(status, rounds, ledger); {len(l1.phases)} phases, {chunks} "
+          f"chunks, {l1.total_rounds} MPC rounds; "
+          f"{rec['walls_s']['algorithm1_alg2']:.3f} s on {dev.type}, "
+          f"{rec['walls_s']['algorithm1_alg2_cpu']:.3f} s on the CPU; "
+          f"launches {launches}; blocking syncs "
+          f"{rec['syncs'].get('algorithm1_alg2')}  [{card}]")
+    if dev.type == "cuda":
+        # B3's window mode at the shape the phased path gives it: the
+        # first prefix of Algorithm 1 (alg3) on this graph, from scratch.
+        g = build_graph(PAPER_ALG2_N, e2, device=dev)
+        ranks = random_permutation_ranks(PAPER_ALG2_N, PRNGKey(77),
+                                         device=dev)
+        _, _, l3 = phases.algorithm1(g, ranks=ranks)
+        hi = l3.phases[0].prefix_end
+        row, _ = bench.run_window(g, ranks, torch.zeros_like(ranks), 0, hi)
+        print_b3_row(row, "mis_window (n, 2m, lo, hi)")
+        rec["window_row"] = row
+
+    # (c) lam=None above the exact degeneracy's cut: the parallel peel.
+    e3 = random_arboric(PAPER_LARGE_N, 2, rng)[0]
+    got, want = both("lam_none", lambda d: api.correlation_cluster(
+        build_graph(PAPER_LARGE_N, e3, device=d), key=PRNGKey(3),
+        device=d))
+    if not _same_result(got, want):
+        raise AssertionError("(7c) lam=None at n = 262,144 differs from "
+                             "the CPU")
+    rec["lam_none"] = {"n": PAPER_LARGE_N,
+                       "lambda_estimate": got.info["lambda_estimate"]}
+    print(f"  (7c) correlation_cluster(lam=None) at n = {PAPER_LARGE_N}: "
+          f"equal to the CPU, lambda_estimate "
+          f"{got.info['lambda_estimate']}; "
+          f"{rec['walls_s']['lam_none']:.3f} s on {dev.type}, "
+          f"{rec['walls_s']['lam_none_cpu']:.3f} s on the CPU  [{card}]")
+
+    # (d) The edge-sharded engine on a group of world size 1.
+    rec["distributed"] = dist_world_one(dev, card, rng, rec)
+
+    # (e) Forests: the exact and the (1 + ε) matchings.
+    ef = random_forest(PAPER_FOREST_N, rng)
+
+    def forests(device):
+        g = build_graph(PAPER_FOREST_N, ef, device=device)
+        partner, rounds = forest.augmenting_matching_parallel(g, PRNGKey(5))
+        return ([api.correlation_cluster(g, method=m, key=PRNGKey(5),
+                                         device=device)
+                 for m in ("forest_exact", "forest_approx")],
+                partner, rounds)
+
+    (got, p1, r1), (want, p2, r2) = both("forests", forests,
+                                         count_sync=False)
+    if not ((p1 == p2).all() and r1 == r2
+            and all(_same_result(a, b) for a, b in zip(got, want))):
+        raise AssertionError("(7e) the forest methods differ from the CPU")
+    ratio = got[1].cost / got[0].cost
+    rec["forests"] = {"n": PAPER_FOREST_N, "exact_cost": got[0].cost,
+                      "approx_cost": got[1].cost, "ratio": ratio,
+                      "rounds": r1}
+    print(f"  (7e) forest_exact / forest_approx at n = {PAPER_FOREST_N}: "
+          f"equal to the CPU (partner, rounds {r1}, labels, info); cost "
+          f"{got[0].cost} / {got[1].cost}, approx/exact {ratio:.6f}; "
+          f"{rec['walls_s']['forests']:.3f} s on {dev.type}  [{card}]")
+
+    # (f) Corollary 32 on disjoint cliques plus noise edges.
+    sizes = rng.integers(1, 13, PAPER_CLIQUES)
+    nc, ec = disjoint_cliques(sizes)
+    noise = rng.integers(0, nc, (nc // 200, 2))
+    ec = np.concatenate([ec, noise])
+    got, want = both("cliques", lambda d: api.correlation_cluster(
+        build_graph(nc, ec, device=d), method="cliques", device=d))
+    if not _same_result(got, want):
+        raise AssertionError("(7f) cliques differs from the CPU")
+    rec["cliques"] = {"n": int(nc),
+                      "clusters": int(len(np.unique(got.labels))),
+                      "cost": got.cost}
+    print(f"  (7f) cliques on {len(sizes)} disjoint cliques + {len(noise)} "
+          f"noise edges (n = {nc}): equal to the CPU; cost {got.cost}; "
+          f"{rec['walls_s']['cliques']:.3f} s on {dev.type}  [{card}]")
+    return rec
+
+
+def dist_world_one(dev, card, rng, rec):
+    """(7d) ``distributed_pivot`` (raw and capped, packed and not) and
+    ``correlation_cluster(distributed=True)`` on a group of world size 1
+    (NCCL on the card, gloo on the CPU, over a ``FileStore`` in a temporary
+    directory), each against the single-device engine: B3 on the same
+    edge-masked graph and ranks, and the non-distributed call."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import api, dist as tdist
+    from repro_torch.core.degree_cap import degree_threshold
+    from repro_torch.core.graph import build_graph, random_arboric
+    from repro_torch.core.mis import random_permutation_ranks
+    from repro_torch.core.rng import PRNGKey
+    from repro_torch.kernels import mis_pivot as mp
+
+    out = {"backend": "nccl" if dev.type == "cuda" else "gloo", "runs": []}
+    with tempfile.TemporaryDirectory() as tmpd:
+        dist.init_process_group(
+            out["backend"], store=dist.FileStore(os.path.join(tmpd, "s"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            t0 = time.perf_counter()
+            for n, lam in ((4096, 1), (32768, 2)):
+                e = random_arboric(n, lam, rng)[0]
+                g = build_graph(n, e, device=dev)
+                ranks = random_permutation_ranks(n, PRNGKey(n), device=dev)
+                high = (g.deg > degree_threshold(lam, 2.0)).cpu().numpy()
+                own = np.arange(n)
+                for capped in (False, True):
+                    keep = ~(high[e[:, 0]] | high[e[:, 1]]) if capped \
+                        else np.ones(len(e), bool)
+                    gm = build_graph(n, e[keep], device=dev)
+                    st, lab, rnd = mp.mis_pivot_csr(
+                        gm.row_offsets, gm.dst, ranks[None].contiguous(),
+                        torch.ones(n, dtype=torch.bool, device=dev))
+                    want = (np.where(high & capped, own, lab[0].cpu().numpy()),
+                            (st[0] == 1).cpu().numpy(), int(rnd[0]))
+                    for packed in (False, True):
+                        tdist.reset_stats()
+                        got = api._distributed_capped(
+                            g, ranks, high, packed=packed) if capped else \
+                            tdist.distributed_pivot(g, ranks, packed=packed)
+                        if not ((got[0] == want[0]).all()
+                                and (got[1] == want[1]).all()
+                                and got[2] == want[2]):
+                            raise AssertionError(
+                                f"(7d) distributed_pivot (n {n}, capped "
+                                f"{capped}, packed {packed}) differs from "
+                                "the single-device engine")
+                        per_round = (tdist.stats["all_reduce_bytes"]
+                                     - 4 * (n + 1)) / got[2]
+                        out["runs"].append({
+                            "n": n, "capped": capped, "packed": packed,
+                            "rounds": got[2], "all_reduces":
+                            tdist.stats["all_reduces"],
+                            "all_reduce_bytes_per_round": per_round})
+                for method in ("pivot", "pivot_raw"):
+                    a, b = (api.correlation_cluster(
+                        g, method=method, lam=lam, key=PRNGKey(n + 1),
+                        num_samples=3, device=dev, distributed=d)
+                        for d in (True, False))
+                    if not _same_result(a, b):
+                        raise AssertionError(f"(7d) {method} distributed "
+                                             "differs from one device")
+            rec["walls_s"]["distributed"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    for r in out["runs"]:
+        print(f"  (7d) distributed_pivot on {out['backend']}, world size 1, "
+              f"n {r['n']}, capped {r['capped']}, packed {r['packed']}: "
+              f"equal to B3; {r['rounds']} rounds, {r['all_reduces']} "
+              f"all-reduces, {r['all_reduce_bytes_per_round']:.0f} bytes a "
+              f"round  [{card}]")
+    print(f"  (7d) correlation_cluster(distributed=True), pivot and "
+          f"pivot_raw, k = 3: equal to one device; "
+          f"{rec['walls_s']['distributed']:.3f} s in all  [{card}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1594,6 +1980,10 @@ def main() -> int:
                         help="another csrc/flash_attention.cu whose "
                         "fa_forward takes this checkout's 14 arguments, "
                         "built and timed beside B4 on the same inputs")
+    parser.add_argument("--b3-baseline", type=Path, default=None,
+                        help="another csrc/mis_pivot.cu whose mp_mis_pivot "
+                        "takes this checkout's 18 arguments, built and "
+                        "timed beside B3 at phase 3's shapes, A B B A")
     parser.add_argument("--ag-baseline", type=Path, default=None,
                         help="another csrc/agreement.cu (none or this "
                         "checkout's ag_abi_version), built and timed beside "
@@ -1634,8 +2024,9 @@ def main() -> int:
     baseline = Baseline(args.baseline) if args.baseline else None
     fa_base = FaBaseline(args.b4_baseline) if args.b4_baseline else None
     ag_base = AgBaseline(args.ag_baseline) if args.ag_baseline else None
+    mp_base = MpBaseline(args.b3_baseline) if args.b3_baseline else None
     logs = _build.build(_build.sources())
-    for extra in (baseline, fa_base, ag_base):
+    for extra in (baseline, fa_base, ag_base, mp_base):
         if extra is not None:
             extra.load()
     record["build_s"] = time.perf_counter() - t0
@@ -1668,8 +2059,12 @@ def main() -> int:
             record["ab_shapes"].append(rows)
             for name, row in rows.items():
                 print_row(name, row)
-    b3bench = MisBench(mis_pivot, ref, record["ptxas"].get("mis_pivot", []))
+    b3bench = MisBench(mis_pivot, ref, record["ptxas"].get("mis_pivot", []),
+                       mp_base)
     record["b3_shapes"] = []
+    if mp_base is not None:
+        print(f"B3 A/B against {args.b3_baseline}, same inputs, a profiler "
+              f"session per kernel and pass  [{card}]")
     for graph, n, lam, k in B3_SHAPES:
         row = b3bench.run(*mis_pivot_inputs(
             n, k, lam, rng, dev, capped=True,
@@ -1678,6 +2073,7 @@ def main() -> int:
         record["b3_shapes"].append(row)
         print_b3_row(row)
         torch.cuda.empty_cache()
+    record["b3_windows"] = b3_window_rows(b3bench, rng, dev)
     abench = AttentionBench(fa, ref, dev, fa_base)
     record["b4_shapes"] = []
     if fa_base is not None:
@@ -1862,12 +2258,30 @@ def main() -> int:
                 "call_ms": row["call_ms"], "bounds": row["bounds"],
                 "variant": f"fa_forward_kernel<{dtype}, {row['shape'][5]}>,"
                            " off the path"})
+    # 7. The paper's other algorithms.
+    t0 = time.perf_counter()
+    paper = paper_phase(dev, card, args.seed, b3bench)
+    paper["phase_s"] = time.perf_counter() - t0
+    print(f"  (7) {paper['phase_s']:.1f} s in all  [{card}]")
+    record["paper"] = paper
+    w = paper["window_row"]
+    kernels.append({
+        "name": "mis_window", "route": "cuda", "source": B3_SOURCE,
+        "replaces": B3_WINDOW_REPLACES,
+        "launches": paper["pivot_phased"]["launches"]["mis_window"],
+        "max_abs_err": 0, "ms": w["ms"], "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+        "library_ms": None, "shape": w["shape"], "call_ms": w["call_ms"],
+        "variant": f"window mode, {w['variant']} route (equal on "
+                   f"{'+'.join(w['equal_on'])})", "rounds": w["rounds"]})
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(record, indent=1))
+        # numpy scalars (sizes, counts) as plain numbers
+        args.out.write_text(json.dumps(record, indent=1, default=lambda o:
+                                       o.item()))
 
-    # 7. Summary.
+    # 8. Summary.
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

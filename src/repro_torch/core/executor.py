@@ -62,6 +62,7 @@ import torch
 
 from repro_torch.util import DeviceLike, next_pow2, resolve_device
 
+from .dist import pow2_device_mesh
 from .programs import bucket_impl, method_spec, objective_spec
 
 # ---------------------------------------------------------------------------
@@ -564,11 +565,7 @@ class ShardedExecutor(AsyncExecutor):
     def __init__(self, devices: Optional[Sequence[DeviceLike]] = None):
         _QueueExecutor.__init__(self)
         if devices is None:
-            count = torch.cuda.device_count()
-            if count == 0:
-                resolve_device(None)        # raises: no CUDA device
-            devices = [f"cuda:{i}"
-                       for i in range(1 << (count.bit_length() - 1))]
+            devices = pow2_device_mesh()
         devs = [resolve_device(d) for d in devices]
         if not devs or len(devs) & (len(devs) - 1):
             raise ValueError(

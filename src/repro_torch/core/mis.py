@@ -20,8 +20,8 @@ host, each round's neighbour-min through :func:`neighbor_min_ranks` and the
 ELL kernel wrapper :func:`repro_torch.kernels.neighbor_min.neighbor_min_ell`:
 the port's earlier per-graph path, which no package code calls. It exists
 only as the yardstick that ``chip_smoke.py`` times the fused kernel against
-in the same run; it goes, with :func:`_mis_round`, once that A/B is no
-longer wanted.
+in the same run. :func:`greedy_mis_rounds_trace` steps the same
+:func:`_mis_round` from the host to record per-round statistics.
 """
 
 from __future__ import annotations
@@ -201,6 +201,43 @@ def _greedy_mis_host_loop(g: Graph, ranks: torch.Tensor,
     return MISState(status=status, rounds=rounds)
 
 
+def greedy_mis_rounds_trace(g: Graph, ranks: torch.Tensor,
+                            max_rounds: int = 100_000):
+    """Greedy MIS one :func:`_mis_round` a host iteration, recording per
+    round ``{"round", "undecided_before", "mis_size"}``: ``(MISState,
+    trace)``, the reference's benchmark variant. Three blocking reads a
+    round."""
+    n = g.n
+    ranks = ranks.to(device=g.device, dtype=torch.int32)
+    status = torch.zeros((n,), dtype=torch.int32, device=g.device)
+    eligible = _eligible(g, None)
+    ell = _nm.ell_from_graph(g)        # loop-invariant
+    rounds, trace = 0, []
+    for _ in range(max_rounds):
+        und = int((status == UNDECIDED).sum())
+        if und == 0:
+            break
+        status = _mis_round(g, ranks, status, eligible, ell)
+        rounds += 1
+        trace.append({"round": rounds, "undecided_before": und,
+                      "mis_size": int((status == IN_MIS).sum())})
+    return MISState(status=status, rounds=rounds), trace
+
+
+def _ranks_tensor(ranks, device) -> torch.Tensor:
+    """``ranks`` (a tensor or anything numpy takes) as a contiguous int32
+    tensor on ``device``."""
+    if not isinstance(ranks, torch.Tensor):
+        ranks = torch.from_numpy(np.array(ranks, dtype=np.int32))
+    return ranks.to(device=device, dtype=torch.int32).contiguous()
+
+
+def dependency_depth(g: Graph, ranks) -> int:
+    """Longest dependency path realized by the parallel simulation (=
+    rounds)."""
+    return greedy_mis_parallel(g, _ranks_tensor(ranks, g.device)).rounds
+
+
 def assign_to_min_rank_mis_neighbor(g: Graph, ranks: torch.Tensor,
                                     in_mis: torch.Tensor) -> torch.Tensor:
     """PIVOT post-pass: label every vertex with its min-rank MIS neighbour.
@@ -232,6 +269,8 @@ __all__ = [
     "greedy_mis_sequential",
     "pivot_sequential",
     "greedy_mis_parallel",
+    "greedy_mis_rounds_trace",
     "assign_to_min_rank_mis_neighbor",
     "neighbor_min_ranks",
+    "dependency_depth",
 ]

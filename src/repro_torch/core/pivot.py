@@ -5,9 +5,10 @@ each MIS vertex (pivot) captures its surviving positive neighbours; a
 3-approximation in expectation. Engines:
 
 * ``engine='rounds'``     — round-parallel MIS (O(log n) depth w.h.p.);
+* ``engine='phased'``     — Algorithm 1 scheduling (the paper's
+                            contribution): identical output, with the MPC
+                            round ledger;
 * ``engine='sequential'`` — host oracle (tests, tiny inputs).
-
-``engine='phased'`` (Algorithm 1) is not ported yet (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ from .graph import Graph
 from .mis import (
     IN_MIS,
     _eligible,
+    assign_to_min_rank_mis_neighbor,
     pivot_sequential,
     random_permutation_ranks,
     random_permutation_ranks_batch,
 )
+from .phases import RoundLedger, algorithm1
 
 
 @dataclasses.dataclass
@@ -35,6 +38,7 @@ class PivotResult:
     labels: np.ndarray           # (n,) cluster ids (pivot vertex ids)
     in_mis: np.ndarray           # (n,) bool pivot mask
     depth: int                   # realized parallel dependency depth
+    ledger: Optional[RoundLedger] = None  # MPC rounds (phased engine)
 
 
 def _pivot_samples(g: Graph, keys: Sequence,
@@ -59,7 +63,8 @@ def _pivot_samples(g: Graph, keys: Sequence,
 
 
 def pivot(g: Graph, key, engine: str = "rounds",
-          eligible: Optional[torch.Tensor] = None) -> PivotResult:
+          eligible: Optional[torch.Tensor] = None,
+          subroutine: str = "alg3") -> PivotResult:
     """Run PIVOT on the positive graph ``g``, on ``g``'s device.
 
     ``eligible`` restricts to an induced subgraph (Theorem 26 degree cap);
@@ -75,8 +80,18 @@ def pivot(g: Graph, key, engine: str = "rounds",
         return PivotResult(labels=labels, in_mis=in_mis, depth=-1)
 
     if engine == "phased":
-        raise NotImplementedError(
-            "engine='phased' (Algorithm 1) is not ported yet: ROADMAP A14")
+        if eligible is not None:
+            raise ValueError("phased engine composes with the degree cap at "
+                             "the api layer (it re-ranks the subgraph)")
+        ranks = random_permutation_ranks(n, key, device=g.device)
+        state, ranks, ledger = algorithm1(g, ranks=ranks,
+                                          subroutine=subroutine)
+        in_mis = state.status == IN_MIS
+        labels = assign_to_min_rank_mis_neighbor(g, ranks, in_mis)
+        ledger.extra_rounds += 1.0  # capture convergecast
+        return PivotResult(labels=labels.cpu().numpy(),
+                           in_mis=in_mis.cpu().numpy(), depth=state.rounds,
+                           ledger=ledger)
     if engine != "rounds":
         raise ValueError(f"unknown engine {engine!r}")
 

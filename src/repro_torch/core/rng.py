@@ -142,6 +142,29 @@ def permutation(key: KeyLike, n: int, device: torch.device) -> torch.Tensor:
     return permutation_batch([key], n, device)[0]
 
 
+def randint(key: KeyLike, minval: int, maxval: int) -> int:
+    """``int(jax.random.randint(key, (), minval, maxval))`` for int32.
+
+    jax draws 32 bits from each half of ``split(key)`` and folds the two
+    into ``[minval, maxval)`` modulo the span, in uint32 arithmetic that
+    wraps (so ``2**16 % span`` squared wraps too); ``maxval <= minval``
+    gives ``minval``.
+    """
+    lo_v = max(-2**31, min(2**31 - 1, int(minval)))
+    hi_v = max(-2**31, min(2**31 - 1, int(maxval)))
+    (a1, a2), (b1, b2) = _split_words(*key_words(key), 2)
+    higher = _xor_words(threefry2x32(a1, a2, 0, 0))
+    lower = _xor_words(threefry2x32(b1, b2, 0, 0))
+    span = 1 if hi_v <= lo_v else (hi_v - lo_v) & _M
+    mult = (((1 << 16) % span) ** 2 & _M) % span
+    offset = ((higher % span) * mult + lower % span) & _M
+    return lo_v + offset % span
+
+
+def _xor_words(words) -> int:
+    return words[0] ^ words[1]
+
+
 def ranks_from_permutation(perm: torch.Tensor) -> torch.Tensor:
     """int32 ``rank[..., v]`` = position of ``v`` in each permutation row."""
     n = perm.shape[-1]
@@ -158,5 +181,6 @@ __all__ = [
     "shuffle_rounds",
     "permutation",
     "permutation_batch",
+    "randint",
     "ranks_from_permutation",
 ]

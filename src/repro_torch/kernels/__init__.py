@@ -7,14 +7,16 @@
                             once a group of best-of-k replicas; warp and
                             smem routes)
   csrc/mis_pivot.cu       — CUDA C++ for sm_90a (every MIS round and the
-                            PIVOT capture of one graph's k samples; B3)
+                            PIVOT capture of one graph's k samples; B3;
+                            and its window mode, Algorithm 1's windows)
   csrc/flash_attention.cu — CUDA C++ for sm_90a (attention forward; B4)
   _build.py               — nvcc build at first use, loaded with ctypes
   neighbor_min.py         — B1, B2 wrappers (device checks, launch counts),
                             their one-graph form and the graph-to-ELL
                             helpers
   agreement.py            — the agreement kernel's wrapper and launch plan
-  mis_pivot.py            — the B3 wrapper and its launch plan
+  mis_pivot.py            — the B3 wrappers (fused PIVOT, window mode) and
+                            their launch plan
   flash_attention.py      — the B4 wrapper
   ref.py                  — the plain versions the wrappers use on the CPU
   measure.py              — timing, bounds and the A/B baseline on the card

@@ -69,6 +69,25 @@
 //    one's. k <= 64 a launch; the wrapper launches more samples in
 //    groups of 64, one after another.
 //
+// Window mode (mp_mis_window, kernels mis_window_block / mis_window_grid):
+// the counterpart of Algorithm 1's _run_window (src/repro/core/phases.py
+// :96-119, one jitted while_loop a window on the TPU). One sample; it starts
+// from a status (n,) that earlier windows left and resolves every undecided
+// vertex whose rank lies in [lo, hi), then returns the new status and the
+// rounds this window took. Three differences from the instances above:
+//  * the loop runs while an undecided vertex *in the window* remains;
+//  * an undecided vertex outside the window keeps its rank as key but does
+//    not compete: pass A folds (unsigned)(key - lo), which is below
+//    span = hi - lo exactly for in-window undecided keys (decided keys are
+//    negative, so above 2^31 - n, and n <= 2^30), so out-of-window and
+//    decided neighbours are never the minimum;
+//  * pass B removes only neighbours that are still undecided (in the window
+//    or not), the reference's hit rule, so an MIS vertex of the input is
+//    never overwritten; there is no capture (Algorithm 1 captures once, at
+//    the end, with assign_to_min_rank_mis_neighbor).
+// The mode is its own template instance (W = true); the instances with
+// W = false compile to the code above, with lo = 0 folded away.
+//
 // A launch goes on the caller's stream, on the device index the caller
 // names, and returns the first error: an invalid plan, a refused attribute,
 // a cooperative launch larger than the card holds at once (never retried
@@ -110,6 +129,9 @@ struct Args {
   unsigned long long* flags;  // grid route: two round flags
   int k;
   int n;
+  const int32_t* status_in;   // window mode: (n,) status before the window
+  unsigned lo;                // window mode: ranks in [lo, lo + span)
+  unsigned span;
 };
 
 // Keys other threads write: through L2 on the grid route, where another
@@ -177,12 +199,16 @@ __device__ __forceinline__ Acc walk_row(bool mine, int b, int e, int32_t* key,
 
 // The whole computation for G = false (block route: this block's sample,
 // state in shared memory skey/swin) or G = true (grid route: every
-// sample's items over the grid, state in a.key/a.win).
-template <bool G>
+// sample's items over the grid, state in a.key/a.win); W = true is the
+// window mode (one sample, no capture).
+template <bool G, bool W>
 __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
                                                uint8_t* swin,
                                                unsigned long long* block_mask) {
   const int n = a.n;
+  // An undecided key k competes iff (unsigned)k - lo < span.
+  const unsigned lo = W ? a.lo : 0u;
+  const unsigned span = W ? a.span : 0x80000000u;
   const int lane = threadIdx.x & 31;
   const long long total = G ? (long long)a.k * n : n;
   const long long first =
@@ -217,12 +243,19 @@ __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
     }
   };
 
-  // Keys from ranks and eligibility; no winners yet.
+  // Keys from ranks and eligibility (window mode: from the status in);
+  // no winners yet.
   for_items([&](bool valid, int s, int v, int32_t* key, uint8_t* win) {
     if (!valid) return;
-    st_key<G>(key + v, __ldg(a.elig + v)
-                           ? __ldg(a.ranks + (long long)s * n + v)
-                           : kRemoved);
+    if constexpr (W) {
+      const int st = __ldg(a.status_in + v);
+      const int r = __ldg(a.ranks + v);
+      st_key<G>(key + v, st == 0 ? r : (st == 1 ? ~r : kRemoved));
+    } else {
+      st_key<G>(key + v, __ldg(a.elig + v)
+                             ? __ldg(a.ranks + (long long)s * n + v)
+                             : kRemoved);
+    }
     *win = 0;
   });
   if constexpr (G) {
@@ -247,18 +280,18 @@ __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
     for_items([&](bool valid, int s, int v, int32_t* key, uint8_t* win) {
       const bool in_play = valid && (!G || ((live >> s) & 1));
       const int kv = in_play ? ld_key<G>(key + v) : -1;
-      const bool mine = kv >= 0;
+      const bool mine = W ? kv >= 0 && (unsigned)kv - lo < span : kv >= 0;
       const int b = mine ? __ldg(a.off + v) : 0;
       const int e = mine ? __ldg(a.off + v + 1) : 0;
       const unsigned m = walk_row<G>(
           mine, b, e, key, n, a.dst, kFull,
-          [](unsigned acc, int32_t* kp, int u) {
-            return min(acc, (unsigned)ld_key<G>(kp + u));
+          [lo](unsigned acc, int32_t* kp, int u) {
+            return min(acc, (unsigned)ld_key<G>(kp + u) - lo);
           },
           [](unsigned x, unsigned y) { return min(x, y); });
       if (mine) {
         seen |= G ? 1ull << s : 1ull;
-        if ((unsigned)kv < m) *win = 1;
+        if ((unsigned)kv - lo < m) *win = 1;
       }
     });
     bool go;
@@ -304,7 +337,8 @@ __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
       walk_row<G>(
           w, b, e, key, n, a.dst, 0,
           [](int acc, int32_t* kp, int u) {
-            st_key<G>(kp + u, kRemoved);
+            // The window mode removes only undecided neighbours.
+            if (!W || ld_key<G>(kp + u) >= 0) st_key<G>(kp + u, kRemoved);
             return acc;
           },
           [](int x, int) { return x; });
@@ -317,7 +351,7 @@ __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
   for_items([&](bool valid, int s, int v, int32_t* key, uint8_t* win) {
     const int kv = valid ? ld_key<G>(key + v) : kRemoved;
     const bool in_mis = kv < 0 && kv != kRemoved;
-    const bool walk = valid && !in_mis && __ldg(a.elig + v);
+    const bool walk = !W && valid && !in_mis && __ldg(a.elig + v);
     const int b = walk ? __ldg(a.off + v) : 0;
     const int e = walk ? __ldg(a.off + v + 1) : 0;
     // ~key is the rank of an MIS neighbour, INT_MAX for a removed one
@@ -331,9 +365,11 @@ __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
         [](unsigned long long x, unsigned long long y) { return min(x, y); });
     if (valid) {
       const long long o = (long long)s * n + v;
-      a.labels[o] = walk && (best >> 32) < (unsigned long long)INT_MAX
-                        ? (int)(unsigned)best
-                        : v;
+      if constexpr (!W) {
+        a.labels[o] = walk && (best >> 32) < (unsigned long long)INT_MAX
+                          ? (int)(unsigned)best
+                          : v;
+      }
       a.status[o] = kv >= 0 ? 0 : (kv == kRemoved ? 2 : 1);
     }
   });
@@ -348,13 +384,66 @@ __device__ __forceinline__ void mis_pivot_body(const Args& a, int32_t* skey,
 // two and holds the grid kernel to 32 registers, where it spills.)
 __global__ void __launch_bounds__(kMaxThreads, 1) mis_pivot_block(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mis_pivot_body<false>(a, reinterpret_cast<int32_t*>(smem),
-                        smem + 4 * (size_t)a.n, nullptr);
+  mis_pivot_body<false, false>(a, reinterpret_cast<int32_t*>(smem),
+                               smem + 4 * (size_t)a.n, nullptr);
 }
 
 __global__ void __launch_bounds__(kMaxThreads, 1) mis_pivot_grid(Args a) {
   __shared__ unsigned long long block_mask;
-  mis_pivot_body<true>(a, nullptr, nullptr, &block_mask);
+  mis_pivot_body<true, false>(a, nullptr, nullptr, &block_mask);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) mis_window_block(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mis_pivot_body<false, true>(a, reinterpret_cast<int32_t*>(smem),
+                              smem + 4 * (size_t)a.n, nullptr);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) mis_window_grid(Args a) {
+  __shared__ unsigned long long block_mask;
+  mis_pivot_body<true, true>(a, nullptr, nullptr, &block_mask);
+}
+
+// Launches `block` or `grid` (the two instances of one mode) with the plan
+// the caller gives, after the checks both entries share.
+int launch(const Args& a, const void* block, const void* grid, int route,
+           int threads, int blocks, int smem_bytes, int device,
+           cudaStream_t s) {
+  if (a.k < 1 || a.n < 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || blocks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kRouteBlock) {
+    if (blocks != a.k || smem_bytes < 5LL * a.n || smem_bytes > kSmemMax) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (smem_bytes > kSmemDefault) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          block, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    void* params[] = {const_cast<Args*>(&a)};
+    const cudaError_t err = cudaLaunchKernel(block, blocks, threads, params,
+                                             (size_t)smem_bytes, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  if (route != kRouteGrid || a.k > kMaxGridSamples || smem_bytes != 0 ||
+      a.flags == nullptr || (a.n > 0 && (a.key == nullptr || a.win == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // Every block of a grid sync must be resident at once.
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, grid, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {const_cast<Args*>(&a)};
+  err = cudaLaunchCooperativeKernel(grid, blocks, threads, params, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -370,45 +459,38 @@ extern "C" int mp_mis_pivot(const void* row_offsets, const void* dst,
                             int smem_bytes, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  if (k < 1 || n < 0 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || blocks < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
   Args a{(const int32_t*)row_offsets, (const int32_t*)dst,
          (const int32_t*)ranks, (const uint8_t*)eligible, (int32_t*)status,
          (int32_t*)labels, (int32_t*)rounds, (int32_t*)key, (uint8_t*)win,
-         (unsigned long long*)flags, k, n};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (route == kRouteBlock) {
-    if (blocks != k || smem_bytes < 5LL * n || smem_bytes > kSmemMax) {
-      return (int)cudaErrorInvalidValue;
-    }
-    if (smem_bytes > kSmemDefault) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          (const void*)mis_pivot_block,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-      if (err != cudaSuccess) return (int)err;
-    }
-    mis_pivot_block<<<k, threads, smem_bytes, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (route != kRouteGrid || k > kMaxGridSamples || smem_bytes != 0 ||
-      flags == nullptr || (n > 0 && (key == nullptr || win == nullptr))) {
+         (unsigned long long*)flags, k, n, nullptr, 0u, 0u};
+  return launch(a, (const void*)mis_pivot_block, (const void*)mis_pivot_grid,
+                route, threads, blocks, smem_bytes, device,
+                (cudaStream_t)stream);
+}
+
+// Window mode: one sample, status_in -> status, rounds (1,); the undecided
+// vertices with rank in [lo, lo + span) are resolved (lo >= 0, n <= 2^30).
+// The plan as for mp_mis_pivot with k = 1.
+extern "C" int mp_mis_window(const void* row_offsets, const void* dst,
+                             const void* ranks, const void* status_in,
+                             void* status, void* rounds, void* key, void* win,
+                             void* flags, int n, int lo, int span, int route,
+                             int threads, int blocks, int smem_bytes,
+                             int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  if (lo < 0 || span < 0 || n > (1 << 30) ||
+      (n > 0 && status_in == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  // Every block of a grid sync must be resident at once.
-  int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mis_pivot_grid, threads, 0);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  if (blocks > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)mis_pivot_grid, blocks,
-                                    threads, params, 0, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  Args a{(const int32_t*)row_offsets, (const int32_t*)dst,
+         (const int32_t*)ranks, nullptr, (int32_t*)status, nullptr,
+         (int32_t*)rounds, (int32_t*)key, (uint8_t*)win,
+         (unsigned long long*)flags, 1, n, (const int32_t*)status_in,
+         (unsigned)lo, (unsigned)span};
+  return launch(a, (const void*)mis_window_block, (const void*)mis_window_grid,
+                route, threads, blocks, smem_bytes, device,
+                (cudaStream_t)stream);
 }
 
 extern "C" const char* mp_error_string(int code) {

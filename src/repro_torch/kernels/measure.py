@@ -8,8 +8,9 @@ byte and operation bound, the random bucket inputs of the ELL kernels, the
 random graphs and the byte count of the fused per-graph PIVOT (B3), B4's
 shapes, tolerances and bounds, the agreement kernel's byte count,
 :class:`Baseline`, an earlier ``neighbor_min.cu`` built and called beside
-the current one, and :class:`FaBaseline` and :class:`AgBaseline`, the same
-for ``flash_attention.cu`` (B4) and ``agreement.cu``. Nothing here touches
+the current one, and :class:`FaBaseline`, :class:`AgBaseline` and
+:class:`MpBaseline`, the same for ``flash_attention.cu`` (B4),
+``agreement.cu`` and ``mis_pivot.cu`` (B3). Nothing here touches
 the card or ``nvcc`` at import time.
 """
 
@@ -214,7 +215,7 @@ def bytes_and_ops(name, B, R, W):
     return 4 * slots + 5 * state + 4 * B * R, 3 * slots
 
 
-def mis_pivot_bytes_and_ops(n: int, ids: int, k: int):
+def mis_pivot_bytes_and_ops(n: int, ids: int, k: int, window=None):
     """Bytes and operations kernel B3 (``mis_pivot``) must move and do for
     ``k`` samples of one graph of ``n`` vertices and ``ids`` = 2m neighbour
     ids: the offsets and the ids read once (the samples share them), the
@@ -222,9 +223,27 @@ def mis_pivot_bytes_and_ops(n: int, ids: int, k: int):
     one compare a neighbour id a sample. The rounds' passes over the CSR
     and the state are the kernel's way of computing the function, not
     bytes the function must move: the state stays on chip (shared memory
-    on the block route, L2 on the grid route), so they are not charged."""
+    on the block route, L2 on the grid route), so they are not charged.
+
+    ``window = (rows, row_ids)`` counts the window mode (k = 1) on this
+    run's data: only the ``rows`` undecided vertices in the window compete,
+    so their two offsets and ``row_ids`` neighbour ids are read once; the
+    ranks and the status in are read and the status out written for every
+    vertex (4n each), the rounds once; one compare a neighbour id read."""
+    if window is not None:
+        rows, row_ids = window
+        return 8 * rows + 4 * row_ids + 12 * n + 4, row_ids
     return (4 * (n + 2) + 4 * ids + 4 * k * n + n + 8 * k * n + 4 * k,
             k * ids)
+
+
+def window_rows(g, ranks: torch.Tensor, status: torch.Tensor, lo: int,
+                hi: int):
+    """(rows, row_ids) of a window: the undecided vertices with rank in
+    ``[lo, hi)`` and the sum of their degrees, for
+    :func:`mis_pivot_bytes_and_ops`."""
+    rows = (status == 0) & (ranks >= lo) & (ranks < hi)
+    return int(rows.sum()), int(g.deg[rows].long().sum())
 
 
 def agreement_bytes_and_ops(ell: torch.Tensor, replicas: int = 1):
@@ -403,6 +422,29 @@ class AgBaseline(_BaselineBuild):
         if code != 0:
             raise RuntimeError(f"baseline agreement launch failed ({code})")
         return out
+
+
+class MpBaseline(_BaselineBuild):
+    """Kernel B3 built from another ``mis_pivot.cu`` whose ``mp_mis_pivot``
+    takes this checkout's 18 arguments, run under this checkout's launch
+    plan beside the current kernel on the same inputs; its launches are not
+    counted."""
+
+    stem = "mis_pivot_base"
+
+    def load(self):
+        lib = self._library()
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mp_mis_pivot.argtypes = [vp] * 10 + [i32] * 7 + [vp]
+        lib.mp_mis_pivot.restype = i32
+        self.lib = lib
+
+    def __call__(self, row_offsets, dst, ranks, eligible):
+        from . import mis_pivot as mp
+
+        k, n = mp._check(row_offsets, dst, ranks, eligible)
+        return mp.run_mis_pivot(self.lib.mp_mis_pivot, row_offsets, dst,
+                                ranks, eligible, mp.mis_launch_plan(k, n))[0]
 
 
 class FaBaseline(_BaselineBuild):

@@ -24,6 +24,13 @@ The tensor's device alone picks the implementation: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.mis_pivot_ref`. On the card every tensor is
 contiguous and :func:`mis_launch_plan` picks the route from the shape.
+
+:func:`mis_window_csr` is the kernel's window mode, the counterpart of
+Algorithm 1's ``_run_window`` (``repro/core/phases.py:96-119``, one jitted
+``while_loop`` a window on the TPU): one sample, starting from a status
+that earlier windows left, resolves every undecided vertex whose rank lies
+in ``[lo, hi)`` and returns the new status and the rounds the window took.
+Its plain version is :func:`repro_torch.kernels.ref.mis_window_ref`.
 """
 
 from __future__ import annotations
@@ -99,7 +106,7 @@ def mis_launch_plan(k: int, n: int) -> MisPlan:
 
 # Launches of the kernel: the wrapper adds one where it launches it and
 # nowhere else.
-launches: Dict[str, int] = {"mis_pivot": 0}
+launches: Dict[str, int] = {"mis_pivot": 0, "mis_window": 0}
 
 
 def reset_launch_counts() -> None:
@@ -119,6 +126,8 @@ def _lib() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mp_mis_pivot.argtypes = [vp] * 10 + [i32] * 7 + [vp]
         lib.mp_mis_pivot.restype = i32
+        lib.mp_mis_window.argtypes = [vp] * 9 + [i32] * 8 + [vp]
+        lib.mp_mis_window.restype = i32
         lib.mp_error_string.argtypes = [i32]
         lib.mp_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -155,6 +164,23 @@ def _check(row_offsets, dst, ranks, eligible):
     return k, n
 
 
+def _scratch(plan: MisPlan, n: int, dev):
+    """The grid route's keys, winner flags and round flags; Nones on the
+    block route."""
+    if plan.route != "grid":
+        return [None] * 3
+    return [torch.empty((plan.samples * n,), dtype=torch.int32, device=dev),
+            torch.empty((plan.samples * n,), dtype=torch.uint8, device=dev),
+            torch.empty((2,), dtype=torch.int64, device=dev)]
+
+
+def _raise_on(code: int, name: str, plan: MisPlan) -> None:
+    if code != 0:
+        msg = _lib().mp_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA kernel launch failed ({code}: "
+                           f"{msg}) with {plan}")
+
+
 def mis_pivot_csr(row_offsets: torch.Tensor, dst: torch.Tensor,
                   ranks: torch.Tensor, eligible: torch.Tensor,
                   plan: Optional[MisPlan] = None):
@@ -166,34 +192,93 @@ def mis_pivot_csr(row_offsets: torch.Tensor, dst: torch.Tensor,
         return _ref.mis_pivot_ref(row_offsets, dst, ranks, eligible)
     if plan is None:
         plan = mis_launch_plan(k, n)
+    out, groups = run_mis_pivot(_lib().mp_mis_pivot, row_offsets, dst, ranks,
+                                eligible, plan)
+    launches["mis_pivot"] += groups
+    return out
+
+
+def run_mis_pivot(entry, row_offsets, dst, ranks, eligible, plan: MisPlan):
+    """Launch ``entry`` (a library's ``mp_mis_pivot``) under ``plan`` on
+    checked CUDA inputs: ``((status, labels, rounds), launches)``. Counts
+    nothing; ``measure.MpBaseline`` runs another source's entry through
+    it."""
+    k, n = ranks.shape
     dev = ranks.device
     status = torch.empty((k, n), dtype=torch.int32, device=dev)
     labels = torch.empty((k, n), dtype=torch.int32, device=dev)
     rounds = torch.empty((k,), dtype=torch.int32, device=dev)
-    scratch = [None] * 3
-    if plan.route == "grid":
-        scratch = [torch.empty((plan.samples * n,), dtype=torch.int32,
-                               device=dev),
-                   torch.empty((plan.samples * n,), dtype=torch.uint8,
-                               device=dev),
-                   torch.empty((2,), dtype=torch.int64, device=dev)]
+    scratch = _scratch(plan, n, dev)
     # One launch a group of plan.samples samples; the groups' launches go
     # one after another on the stream and share the scratch.
+    groups = 0
     for s0 in range(0, k, plan.samples):
         s1 = min(k, s0 + plan.samples)
-        code = _lib().mp_mis_pivot(
+        code = entry(
             row_offsets.data_ptr(), dst.data_ptr(), ranks[s0:s1].data_ptr(),
             eligible.data_ptr(), status[s0:s1].data_ptr(),
             labels[s0:s1].data_ptr(), rounds[s0:s1].data_ptr(),
             *(t if t is None else t.data_ptr() for t in scratch),
             s1 - s0, n, *plan.args(), *device_and_stream(ranks))
-        if code != 0:
-            msg = _lib().mp_error_string(code).decode()
-            raise RuntimeError(f"mis_pivot: CUDA kernel launch failed ({code}:"
-                               f" {msg}) with {plan}")
-        launches["mis_pivot"] += 1
-    return status, labels, rounds
+        _raise_on(code, "mis_pivot", plan)
+        groups += 1
+    return (status, labels, rounds), groups
 
 
-__all__ = ["mis_pivot_csr", "mis_launch_plan", "block_plan", "grid_plan",
+def window_span(n: int, lo: int, hi: int):
+    """``[lo, hi)`` as the kernel takes it: ``(lo', span)`` with
+    ``0 <= lo' <= n`` and ``lo' + span <= n``, the same ranks of a
+    permutation of ``0..n-1``."""
+    lo_c = min(max(int(lo), 0), n)
+    return lo_c, max(0, min(int(hi), n) - lo_c)
+
+
+def mis_window_csr(row_offsets: torch.Tensor, dst: torch.Tensor,
+                   ranks: torch.Tensor, status: torch.Tensor, lo: int,
+                   hi: int, plan: Optional[MisPlan] = None):
+    """``(status, rounds)`` after resolving every undecided vertex with rank
+    in ``[lo, hi)`` from ``status`` (see the module docstring): int32
+    ``(n,)`` and int32 ``(1,)`` on the tensors' device, nothing read back
+    to the host. ``ranks`` int32 ``(n,)``, a permutation; ``status``
+    int32 ``(n,)`` in {0 undecided, 1 MIS, 2 removed}, a state that
+    greedy rounds reach (no MIS vertex has an undecided neighbour).
+    ``plan`` forces a launch plan (k = 1); by default
+    :func:`mis_launch_plan` picks it."""
+    if ranks.dim() != 1 or status.dtype != torch.int32 or \
+            tuple(status.shape) != tuple(ranks.shape):
+        raise ValueError(f"mis_window: ranks and status must be (n,) int32, "
+                         f"got {tuple(ranks.shape)} and {status.dtype} "
+                         f"{tuple(status.shape)}")
+    n = ranks.shape[0]
+    elig = torch.empty((n,), dtype=torch.bool, device=ranks.device)
+    _check(row_offsets, dst, ranks.view(1, n), elig)
+    if status.device != ranks.device:
+        raise ValueError(f"mis_window: status is on {status.device}, ranks "
+                         f"on {ranks.device}")
+    if ranks.device.type == "cpu":
+        return _ref.mis_window_ref(row_offsets, dst, ranks, status, lo, hi)
+    if not status.is_contiguous():
+        raise ValueError("mis_window: status must be contiguous")
+    if n > 1 << 30:
+        raise ValueError(f"mis_window: n = {n} above 2**30")
+    if plan is None:
+        plan = mis_launch_plan(1, n)
+    if plan.samples != 1:
+        raise ValueError(f"mis_window: a plan for one sample, got {plan}")
+    dev = ranks.device
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    rounds = torch.empty((1,), dtype=torch.int32, device=dev)
+    lo_c, span = window_span(n, lo, hi)
+    code = _lib().mp_mis_window(
+        row_offsets.data_ptr(), dst.data_ptr(), ranks.data_ptr(),
+        status.data_ptr(), out.data_ptr(), rounds.data_ptr(),
+        *(t if t is None else t.data_ptr() for t in _scratch(plan, n, dev)),
+        n, lo_c, span, *plan.args(), *device_and_stream(ranks))
+    _raise_on(code, "mis_window", plan)
+    launches["mis_window"] += 1
+    return out, rounds
+
+
+__all__ = ["mis_pivot_csr", "mis_window_csr", "window_span",
+           "mis_launch_plan", "block_plan", "grid_plan",
            "MisPlan", "launches", "reset_launch_counts"]

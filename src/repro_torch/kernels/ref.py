@@ -80,6 +80,16 @@ def label_agree_ref(ell: torch.Tensor, labels_p: torch.Tensor) -> torch.Tensor:
 UNDECIDED, IN_MIS, REMOVED = 0, 1, 2
 
 
+def _csr_edges(row_offsets: torch.Tensor, dst: torch.Tensor, n: int):
+    """(src, nbr) int64 of every CSR entry whose neighbour id is below n."""
+    off = row_offsets.long()
+    src = torch.repeat_interleave(torch.arange(n, device=dst.device),
+                                  off[1:n + 1] - off[:n])
+    nbr = dst[:src.numel()].long()
+    keep = nbr < n
+    return src[keep], nbr[keep]
+
+
 def mis_pivot_ref(row_offsets: torch.Tensor, dst: torch.Tensor,
                   ranks: torch.Tensor, eligible: torch.Tensor):
     """Greedy MIS rounds and the PIVOT capture of k samples of one graph.
@@ -103,12 +113,8 @@ def mis_pivot_ref(row_offsets: torch.Tensor, dst: torch.Tensor,
     rounds = torch.zeros((k,), dtype=torch.int32, device=dev)
     if n == 0:
         return status, own.clone(), rounds
-    off = row_offsets.long()
-    src = torch.repeat_interleave(torch.arange(n, device=dev),
-                                  off[1:n + 1] - off[:n])
-    nbr = dst[:src.numel()].long()
-    keep = nbr < n
-    src, nbr = src[keep].expand(k, -1), nbr[keep]
+    src, nbr = _csr_edges(row_offsets, dst, n)
+    src = src.expand(k, -1)
     rank_at_nbr = ranks[:, nbr]
     inf = torch.full_like(rank_at_nbr, INF_I32)
 
@@ -136,6 +142,45 @@ def mis_pivot_ref(row_offsets: torch.Tensor, dst: torch.Tensor,
     pivot = rank_to_v.gather(1, wmin.long().clamp(max=n - 1))
     labels = torch.where(in_mis, own, torch.where(wmin < INF_I32, pivot, own))
     return status, torch.where(eligible, labels, own), rounds
+
+
+def mis_window_ref(row_offsets: torch.Tensor, dst: torch.Tensor,
+                   ranks: torch.Tensor, status: torch.Tensor, lo: int,
+                   hi: int):
+    """Algorithm 1's ``_run_window`` on one graph: from ``status`` (n,)
+    int32, the reference's ``_mis_round`` with ``eligible = lo <= rank <
+    hi`` while an undecided eligible vertex remains. Returns the new
+    ``status`` (n,) int32 and ``rounds`` (1,) int32, the rounds this
+    window took. Ineligible undecided vertices do not compete but are
+    removed by a winning neighbour.
+    """
+    n = ranks.shape[0]
+    dev = ranks.device
+    status = status.to(torch.int32).clone()
+    rounds = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return status, rounds
+    src, nbr = _csr_edges(row_offsets, dst, n)
+    eligible = (ranks >= lo) & (ranks < hi)
+    rank_at_nbr = ranks[nbr]
+    inf = torch.full_like(rank_at_nbr, INF_I32)
+
+    def segment_min(mask: torch.Tensor) -> torch.Tensor:
+        out = torch.full((n,), INF_I32, dtype=torch.int32, device=dev)
+        return out.scatter_reduce_(0, src, torch.where(
+            mask[nbr], rank_at_nbr, inf), reduce="amin")
+
+    while True:
+        und = (status == UNDECIDED) & eligible
+        if not bool(und.any()):
+            break
+        rounds += 1
+        winners = und & (ranks < segment_min(und))
+        hit = (status == UNDECIDED) & ~winners & (segment_min(winners)
+                                                  < INF_I32)
+        status = torch.where(winners, IN_MIS, status)
+        status = torch.where(hit, REMOVED, status).to(torch.int32)
+    return status, rounds
 
 
 NEG_INF = -1e30
@@ -236,5 +281,6 @@ def agreement_ell_ref(ell: torch.Tensor, budget: Optional[int] = None,
 
 
 __all__ = ["neighbor_min_ref", "label_agree_ref", "mis_pivot_ref",
+           "mis_window_ref",
            "attention_ref", "common_neighbours_ref", "agreement_ell_ref",
            "INF_I32", "NEG_INF", "BETA_NUM", "BETA_DEN", "AGREE_BYTES"]

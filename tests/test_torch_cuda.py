@@ -3,11 +3,13 @@
 Kept free of ``jax`` and ``repro`` so it runs on a GPU machine that has
 only PyTorch: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 B1, B2, the ELL neighbour-min of one graph, the fused per-graph
-PIVOT (B3, both launch routes) and the precluster agreement kernel (both
+PIVOT (B3, both launch routes) and its window mode (both routes, on
+chained windows), the precluster agreement kernel (both
 routes, the smem route's fallback too, at replicas 1 and 3) are held to
 their plain PyTorch versions with ``torch.equal`` (integer outputs,
 tolerance 0), and the batch (pivot and precluster, both objectives) and
-per-graph paths on the card to the same paths on the CPU; the async
+per-graph paths on the card (every method) to the same paths on the
+CPU; the async
 executor keeps two in-flight flushes of one shape on two staging buffers
 and returns from ``submit`` before the flush ends. B4 is held to its plain version within 2e-5 (f32) and
 2e-2 (bf16), the reference's own kernel tolerances (sums in another
@@ -230,6 +232,71 @@ def test_cuda_mis_pivot_rejects_bad_inputs(cuda):
         with pytest.raises(RuntimeError, match=msg):
             mp.mis_pivot_csr(g.row_offsets, g.dst, ranks, elig, plan=plan)
     assert mp.launches["mis_pivot"] == 0
+
+
+def _window_chain(n, rng):
+    """Windows chained from an empty status: empty, the upper half first
+    (its winners remove undecided vertices below it), random ones, then
+    [0, n)."""
+    out = [(0, 0), (n // 2, n), (n // 2, n // 2)]
+    for _ in range(3):
+        lo = int(rng.integers(0, max(1, n)))
+        out.append((lo, lo + int(rng.integers(1, max(2, n // 4)))))
+    return out + [(-5, n + 9)]
+
+
+# (name, n) of B3's window mode: no vertex, one, a hub of degree n - 1,
+# the per-graph sizes on either side of BLOCK_MAX_N, one above a block's
+# shared memory.
+WINDOW_CASES = [("empty", 0), ("single", 1), ("star", 5000),
+                ("arboric", 4096), ("arboric", 32768), ("arboric", 60000)]
+WINDOW_RUNS = [(case, route) for case in WINDOW_CASES
+               for route in ("block", "grid")
+               if route == "grid" or mp.block_plan(1, case[1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,route", WINDOW_RUNS, ids=str)
+def test_cuda_mis_window_equals_plain(cuda, case, route):
+    name, n = case
+    g = build_graph(n, _mis_edges(name, n), device=cuda)
+    ranks = random_permutation_ranks_batch(n, [PRNGKey(n + 3)],
+                                           device=cuda)[0]
+    plan = mp.block_plan(1, n) if route == "block" else mp.grid_plan(1, n)
+    status = torch.zeros(n, dtype=torch.int32, device=cuda)
+    want_status = status.clone()
+    mp.reset_launch_counts()
+    windows = _window_chain(n, np.random.default_rng(n))
+    for lo, hi in windows:
+        status, rounds = mp.mis_window_csr(g.row_offsets, g.dst, ranks,
+                                           status, lo, hi, plan=plan)
+        want_status, want_rounds = ref.mis_window_ref(
+            g.row_offsets, g.dst, ranks, want_status, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(status, want_status), (lo, hi)
+        assert torch.equal(rounds, want_rounds), (lo, hi)
+    assert (status != 0).all()
+    assert mp.launches["mis_window"] == len(windows)
+    assert mp.launches["mis_pivot"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pivot_phased", "forest_exact",
+                                    "forest_approx", "cliques"])
+def test_cuda_paper_methods_equal_cpu(cuda, method):
+    rng = np.random.default_rng(8)
+    mp.reset_launch_counts()
+    for n, lam in [(300, 1), (4096, 2), (9000, 1)]:
+        edges = random_arboric(n, lam, rng)[0]
+        out = [correlation_cluster(build_graph(n, edges, device=dev),
+                                   method=method, key=PRNGKey(n),
+                                   num_samples=2, device=dev)
+               for dev in ("cpu", cuda)]
+        assert (out[0].labels == out[1].labels).all()
+        assert out[0].cost == out[1].cost and out[0].info == out[1].info
+    if method == "pivot_phased":
+        assert mp.launches["mis_window"] > 0
+        assert mp.launches["mis_pivot"] == 0
 
 
 @pytest.mark.cuda

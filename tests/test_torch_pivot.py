@@ -158,8 +158,8 @@ def test_not_ported_methods_and_device_rule(monkeypatch):
             api.correlation_cluster(g, method=method, device=CPU)
     with pytest.raises(ValueError):
         api.correlation_cluster(g, method="nope", device=CPU)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tpivot.pivot(g, trng.PRNGKey(0), engine="phased")
+    with pytest.raises(ValueError, match="unknown engine"):
+        tpivot.pivot(g, trng.PRNGKey(0), engine="nope")
     # No silent CPU fallback: the default device is CUDA.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
