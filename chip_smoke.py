@@ -47,9 +47,9 @@ Phases, in order; any failure raises and exits non-zero:
    against the kernel, each in profiler sessions of its own (A B B A);
 4. clustering main path: ``correlation_cluster_batch(method='pivot',
    num_samples=3)`` on 2,048 random λ-arboric graphs (n log-uniform in
-   [64, 4096]) plus 8 graphs in the R = 2¹⁵ bucket, a cold pass and a warm
-   pass. The launch counts are zeroed just before the warm pass and read
-   just after; B1 and B2 must have launched. Labels are checked against
+   [64, 4096]) plus 8 graphs in the R = 2¹⁵ bucket, one pass. The launch
+   counts are zeroed just before the pass and read just after; B1 and B2
+   must have launched. Labels are checked against
    sequential PIVOT on the eligible-induced subgraph, every cost against
    the host count; (d) 32 graphs through per-graph
    ``correlation_cluster`` on the card, its counts zeroed just before and
@@ -82,8 +82,8 @@ Phases, in order; any failure raises and exits non-zero:
    result equal to ``correlation_cluster_batch`` on the card for its
    graph, key and method, 64 equal to the CPU (precluster against
    ``precluster_host``), requests/s, flush wall p50/p99, cache hits and
-   single-flight riders; the same trace on the sync executor (walls A B B
-   A against async) and under ``policy='coalesce'``; 256 requests under
+   single-flight riders; the same trace on the sync executor (walls A B
+   against async) and under ``policy='coalesce'``; 256 requests under
    ``objective='minmax'`` on the async and the sharded (one device)
    executors, against the batch path; ``submit``'s return time on the
    R = 2¹⁵ pivot bucket; the card's busy share over a traced pass;
@@ -116,10 +116,39 @@ Phases, in order; any failure raises and exits non-zero:
    ``forest_approx`` on a random forest of n = 100,000 (partner and rounds
    of the augmenting matching equal, the approx/exact cost ratio); (f)
    ``cliques`` on 8,000 disjoint cliques plus noise; walls per method;
-8. summary: the card line, a ``kernels`` JSON line (B1, B2, B3 as the
-   fused kernel and as the window mode, B4, the agreement kernel with its
-   route, replicas and both bounds; B1 also on the agreement graphs, B4
-   also at head dims 80 and 160), and last
+8. the near-duplicate dedup path (``repro_torch.data.dedup``) on a
+   synthetic corpus of 20,000 documents (the reference test's recipe:
+   lengths 64–256, 40 % near-duplicates at 5 % mutation, ``--seed``),
+   threshold 0.45, best-of-4, each call's launch counts zeroed just before
+   and read just after: (a) ``dedup_corpus_batched`` (B1 and B2 must
+   launch) equal to the same call on the CPU in labels, keep, cost and
+   info, with the wall of each stage (MinHash, similarity edges, sharding,
+   graph build, clustering, stitching), the shard count and buckets, and
+   the card's busy share over the clustering stage traced alone; (b)
+   ``dedup_corpus_streaming`` through ``ClusterBatcher`` equal to batched
+   (B1 and B2 launched); (c) ``dedup_corpus``, the whole graph through the
+   per-graph engine (B3 launched), equal to the CPU; (d) the same with
+   ``distributed=True`` on an NCCL group of world size 1, equal to
+   ``distributed=False``; (e) ``dedup_quality`` on 2,000 documents of the
+   same recipe, recall > 0.7, precision > 0.9, kept fraction < 0.85;
+9. the launch-plan autotuner (``repro_torch.kernels.autotune``):
+   ``ClusterBatcher(executor='sync').warmup(autotune=True)`` over phase
+   5's graphs (one sample graph a bucket its trace flushes), the tuning
+   cache in a temporary file; every candidate plan of B1 and B2 on the
+   real packed tensors of every swept tier equal to the plain version
+   (``torch.equal``) and no faster than its roofline model
+   (``launch/roofline.py`` ``ell_kernel_roofline``); per bucket and tier
+   the winner, the default's and the winner's device time (CUDA events);
+   a second cache loaded from the file makes no sweep and hits every
+   entry; phase 5's trace served untuned and tuned (sync executor, cost
+   policy, A B B A), every tuned result equal to the untuned one, the
+   program keys carrying the tuned plans, requests/s of each pass;
+10. summary: a ``tuning`` JSON line, the card line, a ``kernels`` JSON line
+   (B1, B2, B3 as the fused kernel and as the window mode, B4, the
+   agreement kernel with its route, replicas and both bounds; B1 also on
+   the agreement graphs, B4 also at head dims 80 and 160; B1's and B2's
+   main-path rows also with their launches on the dedup path and the
+   tuned winner beside the default), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -645,21 +674,18 @@ def main_path(graphs, lams, rng, dev, card, n_oracle=256, n_per_graph=32):
         sync(dev)
         return out, time.perf_counter() - t
 
-    (cold, stats), cold_s = drive()
+    # One pass (the kernels' libraries are loaded by phase 3); the cold
+    # pass of earlier slices was cut to make room for phases 8 and 9.
     nm.reset_launch_counts()
-    (warm, _), warm_s = drive()
+    (warm, stats), warm_s = drive()
     batch_launches = dict(nm.launches)
-    print(f"  cold pass {cold_s:.3f} s; warm pass {warm_s:.3f} s = "
-          f"{len(graphs) / warm_s:.1f} graphs/s  [{card}]")
-    print(f"  launches in the warm pass: {batch_launches}")
+    print(f"  pass {warm_s:.3f} s = {len(graphs) / warm_s:.1f} graphs/s  "
+          f"[{card}]")
+    print(f"  launches in the pass: {batch_launches}")
     if dev.type == "cuda":
         for name in ("neighbor_min_ell_batch", "label_agree_ell_batch"):
             if batch_launches[name] <= 0:
                 raise AssertionError(f"(a) the main path never launched {name}")
-    for a, b in zip(cold, warm):
-        if not ((a.labels == b.labels).all() and a.cost == b.cost
-                and a.info == b.info):
-            raise AssertionError("cold and warm passes differ")
     depth = np.array([r.info["depth"] for r in warm])
     print(f"  MIS rounds p50 {int(np.median(depth))} max {int(depth.max())};"
           f" {len(stats.bucket_shapes)} buckets, padded entries "
@@ -694,7 +720,7 @@ def main_path(graphs, lams, rng, dev, card, n_oracle=256, n_per_graph=32):
     # (d) per-graph engine on the same device, which runs kernel B3.
     per_graph = small[: n_per_graph - 1] + big[-1:]
     record = {
-        "graphs": len(graphs), "cold_s": cold_s, "warm_s": warm_s,
+        "graphs": len(graphs), "warm_s": warm_s,
         "graphs_per_s": len(graphs) / warm_s,
         "rounds_p50": float(np.median(depth)), "rounds_max": int(depth.max()),
         "buckets": [list(x) for x in stats.bucket_shapes],
@@ -882,11 +908,11 @@ class LargestCall:
         return self
 
     def _keep(self, name, fn):
-        def wrapped(ell, *state):
+        def wrapped(ell, *state, **kw):
             kept = self.args.get(name)
             if kept is None or ell.numel() > kept[0].numel():
                 self.args[name] = [t.clone() for t in (ell, *state)]
-            return fn(ell, *state)
+            return fn(ell, *state, **kw)
         return wrapped
 
     def __exit__(self, *exc):
@@ -1344,10 +1370,12 @@ def serving_phase(dev, card, seed, bench, ag_base=None):
     print(f"      every result equals correlation_cluster_batch; "
           f"{check_against_host(out, rows, graphs, lams, SERVE_CPU_CHECKS, rng)}"
           f" equal the CPU (precluster against precluster_host)")
-    # Async against sync on the same trace and policy, A B B A; then the
+    # Async against sync on the same trace and policy, A B (the B A half
+    # of earlier slices was cut to make room for phases 8 and 9, whose
+    # phase 9 serves this trace four times on the sync executor); then the
     # coalescing policy on the sync executor.
     abba = {"async": [wall], "sync": []}
-    for name in ("sync", "sync", "async"):
+    for name in ("sync",):
         o, _, w = serve_pass(rows, graphs, lams, dev, executor=name,
                              policy="cost")
         check_served(o, rows, want, f"{name}/cost")
@@ -1356,15 +1384,14 @@ def serving_phase(dev, card, seed, bench, ag_base=None):
                            policy="coalesce")
     check_served(o, rows, want, "sync/coalesce")
     rates = {name: [len(rows) / t for t in ts] for name, ts in abba.items()}
-    record.update(walls_abba_s=abba, requests_per_s_abba=rates,
+    record.update(walls_ab_s=abba, requests_per_s_ab=rates,
                   coalesce_sync_s=w,
                   coalesce_sync_requests_per_s=len(rows) / w,
                   coalesce_stolen=eng.stats.stolen_requests)
-    print(f"      wall A B B A on the same trace (cost policy): async "
-          f"{abba['async'][0]:.3f} / {abba['async'][1]:.3f} s = "
-          f"{rates['async'][0]:.1f} / {rates['async'][1]:.1f} requests/s, "
-          f"sync {abba['sync'][0]:.3f} / {abba['sync'][1]:.3f} s = "
-          f"{rates['sync'][0]:.1f} / {rates['sync'][1]:.1f} requests/s; "
+    print(f"      wall A B on the same trace (cost policy): async "
+          f"{abba['async'][0]:.3f} s = {rates['async'][0]:.1f} requests/s, "
+          f"sync {abba['sync'][0]:.3f} s = {rates['sync'][0]:.1f} "
+          "requests/s; "
           f"sync/coalesce {w:.3f} s = {len(rows) / w:.1f} requests/s "
           f"({eng.stats.stolen_requests} stolen requests)  [{card}]")
     # The minmax objective and the sharded executor on a subset.
@@ -1965,6 +1992,385 @@ def dist_world_one(dev, card, rng, rec):
     return out
 
 
+# The near-duplicate dedup path (phase 8): the reference test's recipe
+# (tests/test_data.py:29-36) at a corpus a pipeline stage runs; its
+# quality, O(n²) host Python, on a smaller corpus of the same recipe.
+DEDUP_DOCS = 20_000
+DEDUP_QUALITY_DOCS = 2_000
+DEDUP_RECIPE = dict(doc_len=(64, 256), dup_fraction=0.4, mutate_p=0.05)
+DEDUP_THRESHOLD = 0.45
+DEDUP_SAMPLES = 4
+DEDUP_LIMITS = {"pairs_recall": 0.7, "pairs_precision": 0.9,
+                "kept_fraction": 0.85}
+# The card's busy share is traced over the clustering of this many shards
+# (the profiler's per-event cost would make a trace of every shard take
+# minutes).
+DEDUP_TRACE_SHARDS = 128
+# The stages of a dedup call, by the function of repro_torch.data.dedup
+# that runs each; what none of them takes is the stitching.
+DEDUP_STAGES = {"minhash_signatures": "MinHash",
+                "similarity_edges": "similarity edges",
+                "shard_similarity_graph": "sharding",
+                "build_graph": "graph build",
+                "correlation_cluster_batch": "clustering"}
+
+
+class StageWalls:
+    """Wraps the stage functions of the dedup module for one call and sums
+    each one's wall (the device synchronised at its end); keeps the
+    clustering call's arguments, so that it can be traced again alone."""
+
+    def __init__(self, mod, dev):
+        self.mod, self.dev = mod, dev
+        self.walls = {name: 0.0 for name in DEDUP_STAGES}
+        self.cluster_call = None
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.mod, name) for name in DEDUP_STAGES}
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def wrapped(*args, **kw):
+            if name == "correlation_cluster_batch":
+                self.cluster_call = (fn, args, kw)
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(self.dev)
+            self.walls[name] += time.perf_counter() - t
+            return out
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+class SignatureMemo(StageWalls):
+    """Keeps the MinHash signatures and similarity edges of the first call
+    on a corpus for the later calls on it, which then time the sharding,
+    graph build, clustering and stitching alone: the numpy stages are
+    deterministic and held bit-equal to the reference by the CPU tests."""
+
+    def __init__(self, mod):
+        self.mod, self.memo = mod, {}
+
+    def __enter__(self):
+        names = ("minhash_signatures", "similarity_edges")
+        self.saved = {name: getattr(self.mod, name) for name in names}
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, self._kept(name, fn))
+        return self
+
+    def _kept(self, name, fn):
+        def wrapped(first, **kw):
+            key = (name, id(first), tuple(sorted(kw.items())))
+            if key not in self.memo:
+                self.memo[key] = (first, fn(first, **kw))
+            return self.memo[key][1]
+        return wrapped
+
+
+def _same_dedup(a, b, what, info=True):
+    if not (np.array_equal(a.labels, b.labels)
+            and np.array_equal(a.keep, b.keep)
+            and a.clustering.cost == b.clustering.cost
+            and a.n_edges == b.n_edges
+            and (not info or a.clustering.info == b.clustering.info)):
+        raise AssertionError(f"(8) {what}")
+
+
+def dedup_phase(dev, card, seed):
+    """(8) The near-duplicate dedup path on ``dev``: MinHash → LSH
+    similarity graph → one graph per component → the batch engine (B1, B2)
+    and ``ClusterBatcher``, and the whole graph through the per-graph
+    engine (B3) and the edge-sharded engine on a group of world size 1;
+    each against the CPU or the call it must equal, launch counts zeroed
+    just before each call and read just after; stage walls and the card's
+    busy share over the clustering stage; quality on a smaller corpus."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.data import dedup, synthetic
+    from repro_torch.kernels import mis_pivot, neighbor_min as nm
+
+    t_phase = time.perf_counter()
+    corpus = synthetic.synthetic_corpus(n_docs=DEDUP_DOCS, seed=seed,
+                                        **DEDUP_RECIPE)
+    kw = dict(threshold=DEDUP_THRESHOLD, num_samples=DEDUP_SAMPLES,
+              seed=seed)
+    rec = {"docs": DEDUP_DOCS, "walls_s": {}, "launches": {}}
+
+    def run(name, fn, device, **extra):
+        nm.reset_launch_counts()
+        mis_pivot.reset_launch_counts()
+        sync(dev)
+        t = time.perf_counter()
+        out = fn(corpus, device=device, **kw, **extra)
+        sync(dev)
+        rec["walls_s"][name] = time.perf_counter() - t
+        rec["launches"][name] = {**nm.launches, **mis_pivot.launches}
+        return out
+
+    def launched(name, kernels):
+        if dev.type != "cuda":
+            return
+        for k in kernels:
+            if rec["launches"][name][k] <= 0:
+                raise AssertionError(f"(8) {name} never launched {k}")
+
+    # (a) the batch engine, its stages timed, against the CPU. The later
+    # calls reuse its signatures and edges (SignatureMemo).
+    with SignatureMemo(dedup):
+        with StageWalls(dedup, dev) as stages:
+            batched = run("batched", dedup.dedup_corpus_batched, dev)
+        launched("batched", B1_B2)
+        walls = {DEDUP_STAGES[k]: v for k, v in stages.walls.items()}
+        walls["stitching"] = rec["walls_s"]["batched"] - sum(walls.values())
+        rec["stages_s"] = walls
+        info = batched.clustering.info
+        rec.update(edges=batched.n_edges, shards=info["n_shards"],
+                   buckets=[list(b) for b in info["buckets"]],
+                   kept=int(batched.keep.sum()), cost=batched.clustering.cost)
+        print(f"  (8a) dedup_corpus_batched on {DEDUP_DOCS} documents: "
+              f"{batched.n_edges} similarity edges, {info['n_shards']} "
+              f"shards in {info['n_buckets']} buckets {info['buckets']}, "
+              f"{rec['kept']} kept, cost {rec['cost']}; "
+              f"{rec['walls_s']['batched']:.3f} s: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+              + f"; launches {rec['launches']['batched']}  [{card}]")
+        # The card's busy share over the clustering of the first shards:
+        # their device time (profiler) over the same call's untraced wall.
+        fn, (graphs,), ckw = stages.cluster_call
+        n = DEDUP_TRACE_SHARDS
+
+        def window():
+            return fn(graphs[:n], **{**ckw, "keys": ckw["keys"][:n]})
+
+        sync(dev)
+        t = time.perf_counter()
+        window()
+        sync(dev)
+        window_s = time.perf_counter() - t
+        events = device_events(window) if dev.type == "cuda" else None
+        if events is None:
+            print("       card busy share over the clustering stage: not "
+                  "measured (no device events)")
+        else:
+            busy = sum(us for _, us in events) / 1e6
+            rec.update(cluster_window_shards=n, cluster_window_s=window_s,
+                       cluster_window_busy_s=busy,
+                       cluster_window_events=len(events))
+            print(f"       clustering of the first {n} shards: card busy "
+                  f"{busy:.4f} s of its {window_s:.3f} s untraced wall "
+                  f"({100 * busy / window_s:.2f} %), {len(events)} device "
+                  f"events  [{card}]")
+        cpu = run("batched_cpu", dedup.dedup_corpus_batched, "cpu")
+        _same_dedup(batched, cpu, "batched on the card differs from the CPU")
+        # (b) streaming through ClusterBatcher, against the batch engine.
+        stream = run("streaming", dedup.dedup_corpus_streaming, dev,
+                     max_batch=SERVE_MAX_BATCH)
+        launched("streaming", B1_B2)
+        _same_dedup(stream, batched, "streaming differs from batched",
+                    info=False)
+        sinfo = stream.clustering.info
+        rec["streaming"] = {k: sinfo[k] for k in ("flushes", "padded_slots",
+                                                  "cache_hits")}
+        # (c) the whole graph through the per-graph engine (B3), against the
+        # CPU; (d) the edge-sharded engine on a group of world size 1.
+        per = run("per_graph", dedup.dedup_corpus, dev)
+        launched("per_graph", ("mis_pivot",))
+        _same_dedup(per, run("per_graph_cpu", dedup.dedup_corpus, "cpu"),
+                    "per-graph on the card differs from the CPU")
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        with tempfile.TemporaryDirectory() as tmpd:
+            dist.init_process_group(
+                backend, store=dist.FileStore(os.path.join(tmpd, "s"), 1),
+                rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+            try:
+                sharded = run("distributed", dedup.dedup_corpus, dev,
+                              distributed=True)
+            finally:
+                dist.destroy_process_group()
+        _same_dedup(sharded, per, "distributed=True differs from "
+                    "distributed=False", info=False)
+    print(f"  (8b) dedup_corpus_streaming ({SERVE_MAX_BATCH} a flush): "
+          f"{sinfo['flushes']} flushes, equal to batched; "
+          f"{rec['walls_s']['streaming']:.3f} s, launches "
+          f"{rec['launches']['streaming']}  [{card}]")
+    print(f"  (8c) dedup_corpus, one graph of {DEDUP_DOCS} vertices: equal "
+          f"to the CPU, cost {per.clustering.cost}; "
+          f"{rec['walls_s']['per_graph']:.3f} s (CPU "
+          f"{rec['walls_s']['per_graph_cpu']:.3f} s), launches "
+          f"{rec['launches']['per_graph']}  [{card}]")
+    print(f"  (8d) dedup_corpus(distributed=True), {backend} world size 1: "
+          f"equal to distributed=False; "
+          f"{rec['walls_s']['distributed']:.3f} s  [{card}]")
+    print(f"       batched on the CPU {rec['walls_s']['batched_cpu']:.3f} s, "
+          "equal to the card (the walls after (8a) reuse its signatures "
+          "and edges)")
+    # Quality on the smaller corpus, with the reference test's limits.
+    small = synthetic.synthetic_corpus(n_docs=DEDUP_QUALITY_DOCS, seed=seed,
+                                       **DEDUP_RECIPE)
+    q = dedup.dedup_quality(dedup.dedup_corpus_batched(
+        small, device=dev, **kw), small)
+    rec["quality"] = q
+    if not (q["pairs_recall"] > DEDUP_LIMITS["pairs_recall"]
+            and q["pairs_precision"] > DEDUP_LIMITS["pairs_precision"]
+            and q["kept_fraction"] < DEDUP_LIMITS["kept_fraction"]):
+        raise AssertionError(f"(8) dedup quality {q} misses the limits "
+                             f"{DEDUP_LIMITS}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (8e) quality on {DEDUP_QUALITY_DOCS} documents: recall "
+          f"{q['pairs_recall']:.4f}, precision {q['pairs_precision']:.4f}, "
+          f"kept {q['kept_fraction']:.4f} (limits > 0.7, > 0.9, < 0.85); "
+          f"phase {rec['phase_s']:.1f} s  [{card}]")
+    return rec
+
+
+def autotune_phase(dev, card, seed):
+    """(9) ``ClusterBatcher.warmup(autotune=True)`` over phase 5's graphs
+    (one sample graph a bucket its trace flushes), the cache in a
+    temporary file: every candidate of every sweep equal to the plain
+    version and no faster than its roofline model; a second cache loaded
+    from the file makes no sweep; phase 5's trace served tuned and untuned
+    (sync executor, cost policy, A B B A), results equal, program keys
+    carrying the plans."""
+    import os
+    import tempfile
+
+    from repro_torch.core import executor as ex, plan as tplan
+    from repro_torch.core.graph import build_graph, random_arboric
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch.roofline import ell_kernel_roofline
+    from repro_torch.serve import ClusterBatcher
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 6])      # phase 5's, draw for draw
+    graphs, lams = main_path_workload(rng, build_graph, random_arboric, dev)
+    rows = serving_trace(graphs, lams, rng)
+    samples = {}
+    for gi, method in sorted(set(rows)):
+        samples.setdefault(tplan.plan_graph(graphs[gi], method=method,
+                                            lam=lams[gi]).bucket, gi)
+    sample_graphs = [graphs[gi] for gi in samples.values()]
+    engine = dict(max_batch=SERVE_MAX_BATCH, max_wait=SERVE_MAX_WAIT,
+                  num_samples=3, device=dev, executor="sync", policy="cost")
+    rec = {"buckets": sorted(list(b) for b in samples)}
+    untuned = at.TuningCache(path=None)
+    prev = at.set_tuning_cache(untuned)
+    prev_capacity = ex.set_program_cache_capacity(1 << 14)
+    try:
+        with tempfile.TemporaryDirectory() as tmpd:
+            path = os.path.join(tmpd, "tuning.json")
+            tuned = at.TuningCache(path)
+            at.set_tuning_cache(tuned)
+            eng = ClusterBatcher(**engine)
+            sync(dev)
+            t = time.perf_counter()
+            eng.warmup(sample_graphs, autotune=True)
+            sync(dev)
+            rec["warmup_s"] = time.perf_counter() - t
+            eng.close()
+            swept = {(r["R"], r["W"]) for r in tuned.sweep_log}
+            if not set(samples) <= swept:
+                raise AssertionError(f"(9) buckets {set(samples) - swept} "
+                                     "were not swept")
+            sweeps = []
+            for r in tuned.sweep_log:
+                model = ell_kernel_roofline(r["kernel"], r["batch"], r["R"],
+                                            r["W"]).t_model * 1e3
+                if not r["equal"]:
+                    raise AssertionError(f"(9) {r['kernel']} differs from "
+                                         "its plain version")
+                for name, ms in r["timings_ms"].items():
+                    if ms < model:
+                        raise AssertionError(
+                            f"(9) {r['kernel']} {name} at "
+                            f"{(r['batch'], r['R'], r['W'])}: {ms:.6f} ms is "
+                            f"below its roofline model {model:.6f} ms")
+                sweeps.append({**r, "model_ms": model})
+            rec["sweeps"] = sweeps
+            print(f"  (9a) warmup(autotune=True) over {len(sample_graphs)} "
+                  f"sample graphs: {tuned.sweeps} sweeps, {len(tuned)} "
+                  f"entries in {rec['warmup_s']:.2f} s; every candidate "
+                  f"equal to the plain version and no faster than its "
+                  f"roofline model  [{card}]")
+            print("       per (R, W) and tier (B), B1 | B2: winner, default's "
+                  "and winner's device ms")
+            by_bucket: dict = {}
+            for r in sweeps:
+                by_bucket.setdefault((r["R"], r["W"]), {}).setdefault(
+                    r["batch"], {})[r["kernel"]] = r
+            for (R, W), tiers in sorted(by_bucket.items()):
+                print(f"       ({R}, {W}) " + "; ".join(
+                    f"B {b}: " + " | ".join(
+                        f"{t[k]['winner']} {t[k]['default_ms']:.4f} "
+                        f"{t[k]['winner_ms']:.4f}" for k in at.KERNELS)
+                    for b, t in sorted(tiers.items())))
+            # A second process: a cache loaded from the file.
+            second = at.TuningCache(path)
+            at.set_tuning_cache(second)
+            eng = ClusterBatcher(**engine)
+            eng.warmup(sample_graphs, autotune=True)
+            eng.close()
+            rec["second"] = {"sweeps": second.sweeps, "hits": second.hits,
+                             "stale": second.stale, "entries": len(second)}
+            if not (second.sweeps == 0 and second.stale == 0
+                    and second.hits == len(second) == len(tuned)):
+                raise AssertionError(f"(9) second cache {rec['second']}")
+            # Phase 5's trace, untuned and tuned, A B B A.
+            walls: dict = {"untuned": [], "tuned": []}
+            results: dict = {}
+            for name in ("untuned", "tuned", "tuned", "untuned"):
+                at.set_tuning_cache(second if name == "tuned" else untuned)
+                out, _, wall = serve_pass(rows, graphs, lams, dev,
+                                          executor="sync", policy="cost")
+                walls[name].append(wall)
+                results.setdefault(name, out)
+            for uid, req in results["untuned"].items():
+                a, b = req.result, results["tuned"][uid].result
+                if not ((a.labels == b.labels).all() and a.cost == b.cost
+                        and a.info == b.info):
+                    raise AssertionError(f"(9) request {uid} differs tuned")
+            at.set_tuning_cache(second)
+            keys = list(ex._program_cache)
+            tuned_keys = [k for k in keys if len(k) == 5]
+            for k in keys:
+                if len(k) == 2 and k[1] == 3 and \
+                        at.resolve_plans(k[0], dev) is not None and \
+                        not ex.program_cache_contains(k[0], 3, device=dev):
+                    raise AssertionError(f"(9) {k[0]} ran untuned only")
+            if not tuned_keys:
+                raise AssertionError("(9) no program key carries a plan")
+    finally:
+        at.set_tuning_cache(prev)
+        ex.set_program_cache_capacity(prev_capacity)
+    rates = {name: [len(rows) / w for w in ws] for name, ws in walls.items()}
+    wins: dict = {}
+    for r in sweeps:
+        wins.setdefault(r["kernel"], {}).setdefault(r["winner"], 0)
+        wins[r["kernel"]][r["winner"]] += 1
+    rec.update(walls_abba_s=walls, requests_per_s=rates, winners=wins,
+               tuned_keys=len(tuned_keys), entries=len(tuned),
+               sweeps_n=len(sweeps),
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  (9b) a second TuningCache from the file: {second.sweeps} "
+          f"sweeps, {second.hits} hits of {len(second)} entries, "
+          f"{second.stale} stale")
+    print(f"  (9c) phase 5's trace ({len(rows)} requests), sync/cost, A B B "
+          f"A: untuned {rates['untuned'][0]:.1f} / {rates['untuned'][1]:.1f}"
+          f", tuned {rates['tuned'][0]:.1f} / {rates['tuned'][1]:.1f} "
+          f"requests/s; every tuned result equals the untuned one; "
+          f"{len(tuned_keys)} program keys carry tuned plans; winners "
+          f"{wins}; phase {rec['phase_s']:.1f} s  [{card}]")
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2274,6 +2680,28 @@ def main() -> int:
         "library_ms": None, "shape": w["shape"], "call_ms": w["call_ms"],
         "variant": f"window mode, {w['variant']} route (equal on "
                    f"{'+'.join(w['equal_on'])})", "rounds": w["rounds"]})
+    # 8. The near-duplicate dedup path.
+    dedup_rec = dedup_phase(dev, card, args.seed)
+    record["dedup"] = dedup_rec
+    # 9. The launch-plan autotuner.
+    tune = autotune_phase(dev, card, args.seed)
+    record["autotune"] = tune
+    # B1's and B2's main-path rows also carry their launches on the dedup
+    # path and the tuned winner at the largest tier of phase 9's widest
+    # R = 4096 bucket, beside the default.
+    R4 = max((r for r in tune["sweeps"] if r["R"] == 4096),
+             key=lambda r: (r["W"], r["batch"]), default=None)
+    for row, kern in zip(kernels[:2], ("neighbor_min", "label_agree")):
+        row["launches_dedup"] = {
+            path: dedup_rec["launches"][path][row["name"]]
+            for path in ("batched", "streaming")}
+        if R4 is not None:
+            at_shape = next(r for r in tune["sweeps"] if r["kernel"] == kern
+                            and (r["R"], r["W"], r["batch"])
+                            == (R4["R"], R4["W"], R4["batch"]))
+            row["tuned"] = {k: at_shape[k] for k in (
+                "batch", "R", "W", "default", "default_ms", "winner",
+                "winner_ms", "model_ms")}
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2281,7 +2709,14 @@ def main() -> int:
         args.out.write_text(json.dumps(record, indent=1, default=lambda o:
                                        o.item()))
 
-    # 8. Summary.
+    # 10. Summary.
+    print(json.dumps({"tuning": {
+        "entries": tune["entries"], "sweeps": tune["sweeps_n"],
+        "warmup_s": tune["warmup_s"], "second": tune["second"],
+        "winners": tune["winners"], "tuned_program_keys": tune["tuned_keys"],
+        "requests_per_s_abba": tune["requests_per_s"],
+        "dedup_stages_s": dedup_rec["stages_s"],
+        "dedup_walls_s": dedup_rec["walls_s"]}}))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

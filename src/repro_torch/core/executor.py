@@ -21,7 +21,12 @@ registry keeps the reference's bounded-LRU API over the
 LRU, refcounted-pin and capacity rules, so the policies decide as the
 reference's do on the same trace. Methods of one program family
 (``'pivot'`` / ``'pivot_raw'``) share keys, and pivot × disagree keeps the
-legacy short key. No compile wall exists to learn, so the policy's
+legacy short key. A shape whose bucket tier the autotuner has tuned
+(:mod:`repro_torch.kernels.autotune`) runs with the tuned launch plans of
+B1 and B2, and its key carries them; an untuned shape keeps the untuned
+key, so the cost model's residency probe and a run never disagree. Plans
+are resolved on the submitting thread (:func:`_resolve_plans`), never on
+a dispatch thread. No compile wall exists to learn, so the policy's
 compile charge for an unseen shape is its static prior.
 
 **Bucket executors** — how a packed bucket reaches the device:
@@ -82,13 +87,31 @@ _cache_lock = threading.Lock()
 
 
 def _program_key(shape, k: int, program: str = "pivot",
-                 objective: str = "disagree") -> tuple:
-    """The registry key of one bucket program; pivot × disagree keeps the
-    reference's legacy short form."""
+                 objective: str = "disagree", plans=None) -> tuple:
+    """The registry key of one bucket program; untuned pivot × disagree
+    keeps the reference's legacy short form, and a tuned program carries
+    its ``(neighbor_min, label_agree)`` plan choices."""
     base = (tuple(int(s) for s in shape), int(k))
-    if program == "pivot" and objective == "disagree":
-        return base
-    return base + (program, objective)
+    if plans is None:
+        if program == "pivot" and objective == "disagree":
+            return base
+        return base + (program, objective)
+    return base + (program, objective, tuple(plans))
+
+
+def _resolve_plans(shape, device, plans=None):
+    """The launch plans a bucket program of ``shape`` on ``device`` runs
+    with: the caller's explicit ``(neighbor_min, label_agree)`` pair, else
+    the tuning cache's winners, else None (untuned: ``launch_plan`` picks,
+    and the key keeps its untuned form). ``device=None`` resolves nothing
+    (the probe of an engine whose device is unknown)."""
+    if plans is not None:
+        return tuple(plans)
+    if device is None:
+        return None
+    from repro_torch.kernels.autotune import resolve_plans
+
+    return resolve_plans(shape, device)
 
 
 def _key_bucket(key: tuple) -> Tuple[int, int]:
@@ -111,10 +134,11 @@ def _evict_to_capacity() -> None:
         _program_cache_evictions += 1
 
 
-def _record_run(shape, k: int, program: str, objective: str) -> None:
+def _record_run(shape, k: int, program: str, objective: str,
+                plans=None) -> None:
     """Enter (or refresh) the key of a program about to run."""
     global _program_cache_compiles
-    key = _program_key(shape, k, program, objective)
+    key = _program_key(shape, k, program, objective, plans)
     with _cache_lock:
         if key in _program_cache:
             _program_cache.move_to_end(key)
@@ -146,11 +170,15 @@ def set_program_cache_capacity(capacity: int) -> int:
 
 
 def program_cache_contains(shape, k: int, method: str = "pivot",
-                           objective: str = "disagree") -> bool:
+                           objective: str = "disagree", device=None,
+                           plans=None) -> bool:
     """Non-mutating probe: has this exact bucket program run (and is it
-    still resident)? Never touches the LRU order."""
-    return _program_key(shape, k, method_spec(method).program,
-                        objective) in _program_cache
+    still resident)? Never touches the LRU order. ``plans`` resolves as
+    a run on ``device`` does (:func:`_resolve_plans`: explicit pair >
+    tuning-cache winners > untuned), so probe and run agree on the key."""
+    return _program_key(shape, k, method_spec(method).program, objective,
+                        _resolve_plans(shape, device, plans)) \
+        in _program_cache
 
 
 def program_cache_touch(bucket: Tuple[int, int]) -> int:
@@ -218,35 +246,40 @@ def _to_device(a, dev: torch.device) -> torch.Tensor:
 
 def run_bucket_program(ell, ranks_p, elig_p, m_edges, k: int,
                        method: str = "pivot", objective: str = "disagree",
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, plans=None):
     """Run one bucket program on ``device``; returns device tensors.
 
     The inputs are the host arrays of :func:`repro_torch.core.plan.
     pack_bucket` (or tensors); they are copied to the device here, on the
-    calling thread's current stream.
+    calling thread's current stream. ``plans`` forces the B1/B2 plan
+    choices (default: the tuning cache's, :func:`_resolve_plans`).
     """
     program = method_spec(method).program
     objective_spec(objective)            # fail fast on unknown objectives
-    _record_run(np.shape(ell), k, program, objective)
+    dev = resolve_device(device)
+    shape = np.shape(ell)
+    plans = _resolve_plans(shape, dev, plans)
+    _record_run(shape, k, program, objective, plans)
     return _launch((ell, ranks_p, elig_p, m_edges), k, program, objective,
-                   resolve_device(device))
+                   dev, plans)
 
 
 def _launch(args, k: int, program: str, objective: str,
-            dev: torch.device):
+            dev: torch.device, plans=None):
     return bucket_impl(*(_to_device(a, dev) for a in args), k=k,
-                       program=program, objective=objective)
+                       program=program, objective=objective, plans=plans)
 
 
 def _run_to_host(args, k: int, program: str, objective: str,
-                 dev: torch.device, stream) -> Tuple[list, Any]:
+                 dev: torch.device, stream, plans=None) -> Tuple[list, Any]:
     """One (shard of a) flush on a dispatch thread: the program on
     ``stream``, its outputs copied to pinned host memory, and a CUDA event
-    recorded after the copies (None on the CPU)."""
+    recorded after the copies (None on the CPU). ``plans`` were resolved
+    by the submitting thread."""
     if stream is None:
-        return list(_launch(args, k, program, objective, dev)), None
+        return list(_launch(args, k, program, objective, dev, plans)), None
     with torch.cuda.stream(stream):
-        outs = _launch(args, k, program, objective, dev)
+        outs = _launch(args, k, program, objective, dev, plans)
         host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                 for o in outs]
         for h, o in zip(host, outs):
@@ -384,6 +417,8 @@ class BucketExecutor(Protocol):
         ``track=True`` (serving layers) enqueues the handle for delivery
         through ``retire``/``drain``; ``track=False`` (one-shot callers that
         harvest via ``result()``) leaves queue bookkeeping to the caller.
+        The B1/B2 launch plans are the tuning cache's winners for the
+        shape, resolved here, on the submitting thread.
         """
         ...
 
@@ -412,7 +447,8 @@ class _QueueExecutor:
     def group_pad(self, n_groups: int) -> int:
         return next_pow2(max(1, n_groups))
 
-    def _dispatch(self, args, k: int, program: str, objective: str) -> list:
+    def _dispatch(self, args, k: int, program: str, objective: str,
+                  plans=None) -> list:
         raise NotImplementedError
 
     def submit(self, ell, ranks_p, elig_p, m_edges, k: int,
@@ -423,9 +459,12 @@ class _QueueExecutor:
         objective_spec(objective)
         shape = tuple(int(s) for s in np.shape(ell))
         submitted_at = time.perf_counter()
-        _record_run(shape, k, program, objective)
+        # Resolved here, not on a dispatch thread, so the key recorded and
+        # the plans run are one.
+        plans = _resolve_plans(shape, self.device)
+        _record_run(shape, k, program, objective, plans)
         parts = self._dispatch((ell, ranks_p, elig_p, m_edges), k, program,
-                               objective)
+                               objective, plans)
         handle = InFlightBucket(parts, payload=payload, lease=lease,
                                 shape=shape,
                                 assemble_seconds=assemble_seconds,
@@ -473,9 +512,9 @@ class SyncExecutor(_QueueExecutor):
         super().__init__()
         self.device = resolve_device(device)
 
-    def _dispatch(self, args, k, program, objective):
-        return [(list(_launch(args, k, program, objective, self.device)),
-                 None)]
+    def _dispatch(self, args, k, program, objective, plans=None):
+        return [(list(_launch(args, k, program, objective, self.device,
+                              plans)), None)]
 
     def _post_submit(self, handle: InFlightBucket) -> None:
         handle.result()
@@ -492,12 +531,12 @@ class _Lane:
                        if device.type == "cuda" else None)
         self.pool: Optional[ThreadPoolExecutor] = None
 
-    def submit(self, args, k, program, objective) -> Future:
+    def submit(self, args, k, program, objective, plans=None) -> Future:
         if self.pool is None:
             self.pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="bucket-dispatch")
         return self.pool.submit(_run_to_host, args, k, program, objective,
-                                self.device, self.stream)
+                                self.device, self.stream, plans)
 
     def shutdown(self) -> None:
         pool, self.pool = self.pool, None
@@ -527,7 +566,7 @@ class AsyncExecutor(_QueueExecutor):
         self.num_devices = len(devices)
         self._lanes = [_Lane(d) for d in devices]
 
-    def _dispatch(self, args, k, program, objective):
+    def _dispatch(self, args, k, program, objective, plans=None):
         # One shard a lane; a shard is whole groups of k entries.
         B = int(np.shape(args[0])[0])
         if B % (self.num_devices * k):
@@ -537,7 +576,7 @@ class AsyncExecutor(_QueueExecutor):
                 "group axis with group_pad")
         step = B // self.num_devices
         return [lane.submit(tuple(a[i * step:(i + 1) * step] for a in args),
-                            k, program, objective)
+                            k, program, objective, plans)
                 for i, lane in enumerate(self._lanes)]
 
     def close(self) -> None:

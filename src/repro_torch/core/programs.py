@@ -8,7 +8,7 @@ without knowing what the method computes.
 
 A method provides one function over the packed tensors of a bucket::
 
-    rounds_body(ell, ranks_p, elig_p, replicas=1)
+    rounds_body(ell, ranks_p, elig_p, replicas=1, nm_plan=None)
         -> (labels (B, R) int32, rounds (B,) int32)
 
 ``ell`` is the (B, R, W) int32 ELL adjacency (pad id ``R``), ``ranks_p``
@@ -21,9 +21,12 @@ depends on the ELL alone once a group.
 
 An objective provides::
 
-    cost_pass(ell, labels, m_edges) -> costs (B,) int32
+    cost_pass(ell, labels, m_edges, la_plan=None) -> costs (B,) int32
 
-scored per batch entry before best-of-k selection.
+scored per batch entry before best-of-k selection. ``nm_plan`` and
+``la_plan`` are the launch plans of B1 and B2 at the bucket's ``(B, R,
+W)``, the autotuner's winners (:mod:`repro_torch.kernels.autotune`); None
+lets ``launch_plan`` pick, and the CPU's plain versions ignore them.
 
 Both neighbourhood reductions go through the kernel wrappers of
 :mod:`repro_torch.kernels.neighbor_min`: the hand-written CUDA kernels for
@@ -63,6 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import agreement as _ag
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import neighbor_min as _nm
 from repro_torch.kernels.ref import BETA_DEN, BETA_NUM
 
@@ -78,7 +82,8 @@ PRECLUSTER_ROUNDS = 3
 
 
 def _pivot_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
-                       elig_p: torch.Tensor, replicas: int = 1):
+                       elig_p: torch.Tensor, replicas: int = 1,
+                       nm_plan=None):
     """MIS rounds until no vertex is undecided, then the PIVOT capture.
     (Every step reads the ranks, so ``replicas`` changes nothing.)
 
@@ -95,7 +100,8 @@ def _pivot_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
 
     def nbr_min(active: torch.Tensor) -> torch.Tensor:
         active_p = torch.cat([active, pad], dim=1)
-        return _nm.neighbor_min_ell_batch(ell, ranks_p, active_p)
+        return _nm.neighbor_min_ell_batch(ell, ranks_p, active_p,
+                                          plan=nm_plan)
 
     status = torch.where(elig, UNDECIDED, REMOVED).to(torch.int32)
     rounds = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -140,7 +146,8 @@ def _rank_capture(ranks: torch.Tensor, reached: torch.Tensor,
 
 
 def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
-                            elig_p: torch.Tensor, replicas: int = 1):
+                            elig_p: torch.Tensor, replicas: int = 1,
+                            nm_plan=None):
     """Constant-round pre-clustering by neighbourhood agreement.
 
     Three straight-line stages, no data-dependent loop:
@@ -171,7 +178,8 @@ def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
     for _ in range(PRECLUSTER_ROUNDS):
         state_p = torch.cat([state, inf_col], dim=1)
         nxt = torch.minimum(
-            state, _nm.neighbor_min_ell_batch(agree_ell, state_p, elig_p))
+            state, _nm.neighbor_min_ell_batch(agree_ell, state_p, elig_p,
+                                              plan=nm_plan))
         rounds += (nxt != state).any(dim=1).to(torch.int32)
         state = nxt
     labels = _rank_capture(ranks, state, state < INF_RANK, elig)
@@ -183,12 +191,13 @@ def _precluster_rounds_body(ell: torch.Tensor, ranks_p: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _label_agree_counts(ell: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _label_agree_counts(ell: torch.Tensor, labels: torch.Tensor,
+                        la_plan=None) -> torch.Tensor:
     """(B, R) per-vertex same-label neighbour counts over the packed ELL."""
     B = ell.shape[0]
     labels_p = torch.cat(
         [labels, labels.new_full((B, 1), -1)], dim=1).contiguous()
-    return _nm.label_agree_ell_batch(ell, labels_p)
+    return _nm.label_agree_ell_batch(ell, labels_p, plan=la_plan)
 
 
 def _cluster_sizes(labels: torch.Tensor) -> torch.Tensor:
@@ -198,7 +207,7 @@ def _cluster_sizes(labels: torch.Tensor) -> torch.Tensor:
 
 
 def _disagree_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
-                        m_edges: torch.Tensor) -> torch.Tensor:
+                        m_edges: torch.Tensor, la_plan=None) -> torch.Tensor:
     """Total disagreement count — the paper's objective.
 
     Every kept (eligible-induced) undirected edge appears twice in the ELL,
@@ -208,7 +217,7 @@ def _disagree_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
       cost = (m − intra_pos) + (intra_pairs − intra_pos).
     ``R ≤ 2¹⁵`` keeps ``sizes·(sizes−1)/2`` and every sum inside int32.
     """
-    agree = _label_agree_counts(ell, labels)
+    agree = _label_agree_counts(ell, labels, la_plan)
     intra_pos2 = agree.sum(dim=1, dtype=torch.int32)
     sizes = _cluster_sizes(labels)
     intra_pairs = (sizes * (sizes - 1) // 2).sum(dim=1, dtype=torch.int32)
@@ -216,7 +225,7 @@ def _disagree_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
 
 
 def _minmax_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
-                      m_edges: torch.Tensor) -> torch.Tensor:
+                      m_edges: torch.Tensor, la_plan=None) -> torch.Tensor:
     """Worst-vertex disagreement (min-max objective, arXiv 2502.12519).
 
     Per vertex v: cut positive edges (deg(v) − samelabel(v)) plus missing
@@ -225,7 +234,7 @@ def _minmax_cost_pass(ell: torch.Tensor, labels: torch.Tensor,
     packed tensors carry (module docstring).
     """
     R = ell.shape[1]
-    agree = _label_agree_counts(ell, labels)
+    agree = _label_agree_counts(ell, labels, la_plan)
     deg = (ell != R).sum(dim=2, dtype=torch.int32)
     sizes = _cluster_sizes(labels)
     size_of = torch.gather(sizes, 1, labels.long())
@@ -334,7 +343,8 @@ register_objective(ObjectiveSpec(
 
 def bucket_impl(ell: torch.Tensor, ranks_p: torch.Tensor,
                 elig_p: torch.Tensor, m_edges: torch.Tensor, k: int,
-                program: str = "pivot", objective: str = "disagree"):
+                program: str = "pivot", objective: str = "disagree",
+                plans=None):
     """Cluster + cost + select every graph of one shape bucket.
 
     Returns ``(labels (G, R), costs (G,), picked (G,), rounds (G,))``, all
@@ -343,12 +353,23 @@ def bucket_impl(ell: torch.Tensor, ranks_p: torch.Tensor,
     The first cost minimum wins
     (``torch.argmin`` returns the first occurrence), the same rule as the
     per-graph loop's strict ``<``.
+
+    ``plans`` is the tuned ``(neighbor_min, label_agree)`` pair of
+    :class:`~repro_torch.kernels.autotune.PlanChoice` (None: untuned). Each
+    is built into a launch plan at this call's ``(B, R, W)``: the B1 plan
+    serves the rounds body (the pivot MIS loop and capture, and the
+    precluster propagation over the agreement ELL of the same shape), the
+    B2 plan the cost pass.
     """
     spec = _METHODS[program]
     obj = _OBJECTIVES[objective]
     B, R, W = ell.shape
-    labels, rounds = spec.rounds_body(ell, ranks_p, elig_p, replicas=k)
-    costs = obj.cost_pass(ell, labels, m_edges)
+    nm_choice, la_choice = plans if plans is not None else (None, None)
+    labels, rounds = spec.rounds_body(
+        ell, ranks_p, elig_p, replicas=k,
+        nm_plan=_autotune.plan_of(nm_choice, B, R, W))
+    costs = obj.cost_pass(ell, labels, m_edges,
+                          la_plan=_autotune.plan_of(la_choice, B, R, W))
     G = B // k
     cost_g = costs.reshape(G, k)
     picked = torch.argmin(cost_g, dim=1)

@@ -18,6 +18,8 @@
   mis_pivot.py            — the B3 wrappers (fused PIVOT, window mode) and
                             their launch plan
   flash_attention.py      — the B4 wrapper
+  autotune.py             — B1/B2 launch plans swept per bucket tier, the
+                            tuning cache the executors resolve them from
   ref.py                  — the plain versions the wrappers use on the CPU
   measure.py              — timing, bounds and the A/B baseline on the card
 

@@ -208,11 +208,16 @@ def kernel_inputs(B, R, W, rng, dev):
 
 
 def bytes_and_ops(name, B, R, W):
-    """DRAM bytes (each input read once, output written once) and ops."""
-    slots, state = B * R * W, B * (R + 1)
-    if name == "label_agree_ell_batch":
-        return 4 * slots + 4 * state + 4 * B * R, 3 * slots
-    return 4 * slots + 5 * state + 4 * B * R, 3 * slots
+    """DRAM bytes (each input read once, output written once) and ops of
+    B1, B2 or the one-graph form: the ELL roofline's own counts
+    (``launch/roofline.py`` ``ell_kernel_bytes``, ``ell_kernel_flops``),
+    so the bounds printed here and the autotuner's model are one."""
+    from repro_torch.launch.roofline import ell_kernel_bytes, ell_kernel_flops
+
+    kernel = "label_agree" if name == "label_agree_ell_batch" \
+        else "neighbor_min"
+    return (int(ell_kernel_bytes(kernel, B, R, W)),
+            int(ell_kernel_flops(kernel, B, R, W)))
 
 
 def mis_pivot_bytes_and_ops(n: int, ids: int, k: int, window=None):

@@ -273,17 +273,19 @@ def neighbor_min_ell(ell: torch.Tensor, ranks_p: torch.Tensor,
                                 "neighbor_min_ell")[0]
 
 
-def label_agree_ell_batch(ell: torch.Tensor,
-                          labels_p: torch.Tensor) -> torch.Tensor:
+def label_agree_ell_batch(ell: torch.Tensor, labels_p: torch.Tensor,
+                          plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """(B, R) int32 same-label neighbour counts of a bucket (kernel B2).
 
     ``ell`` (B, R, W) int32, ``labels_p`` (B, R+1) int32 with slot R = -1.
+    ``plan`` forces a route on the card, as for
+    :func:`neighbor_min_ell_batch`.
     """
     B, R, W = _check("label_agree_ell_batch", ell, True,
                      labels_p=(labels_p, torch.int32))
     if ell.device.type == "cpu":
         return _ref.label_agree_ref(ell, labels_p)
-    plan = _plan_args("label_agree_ell_batch", B, R, W, ell)
+    plan = _plan_args("label_agree_ell_batch", B, R, W, ell, plan)
     out = torch.empty((B, R), dtype=torch.int32, device=ell.device)
     code = _lib().nm_label_agree(ell.data_ptr(), labels_p.data_ptr(),
                                  out.data_ptr(), B, R, W, R + 1, *plan,

@@ -112,8 +112,9 @@ Devices
   The port's engine takes ``device=`` (``None`` means CUDA and raises
   without it) where the reference takes ``use_kernel``: on the card every
   flush launches the hand-written kernels, on the CPU their plain
-  versions run. ``warmup(autotune=True)`` raises ``NotImplementedError``
-  until the kernel autotuner is ported (ROADMAP A13).
+  versions run. ``warmup(autotune=True)`` sweeps the launch plans of
+  kernels B1 and B2 per bucket tier on the engine's device
+  (:mod:`repro_torch.kernels.autotune`) before running the programs.
 """
 
 from __future__ import annotations
@@ -180,6 +181,9 @@ class ClusterStats(EngineStats):
     # engine's own. Mutable and aliased to the cache — delta accounting
     # must go through EngineStats.snapshot(), not dataclasses.replace.
     result_cache: Optional[ResultCacheStats] = None
+    # Autotune telemetry from the last warmup(autotune=True): tuning-cache
+    # counters and the sweep log (None = never autotuned).
+    tuning: Optional[dict] = None
 
 
 class ClusterBatcher:
@@ -494,7 +498,8 @@ class ClusterBatcher:
                 for reqs in self.buckets.values() if reqs]
         return max(ages, default=0.0)
 
-    def warmup(self, graphs, autotune: bool = False) -> int:
+    def warmup(self, graphs, autotune: bool = False, candidates=None,
+               repeats: int = 3) -> int:
         """Run every pow2 sub-batch program the workload can hit once.
 
         Deadline flushes run partial buckets at power-of-two sub-batch
@@ -505,27 +510,36 @@ class ClusterBatcher:
         the program registry the cost policy reads holds those shapes.
         Returns the number of programs that entered the registry.
 
-        ``autotune=True`` needs the kernel autotuner, which is not ported
-        yet (ROADMAP A13), and raises ``NotImplementedError``.
+        ``autotune=True`` first sweeps the launch plans of kernels B1 and
+        B2 (:mod:`repro_torch.kernels.autotune`; ``candidates`` are the
+        staged route's rows-per-block caps) per bucket tier over *real
+        packed bucket tensors* built from the sample graphs, records each
+        winner in the process tuning cache, and only then runs the
+        programs, so the registry holds the tuned keys the flushes will
+        run. Tiers whose winners are already cached are skipped: a second
+        process warming up against a populated
+        ``REPRO_TORCH_TUNING_CACHE`` performs zero sweeps (the cache's hit
+        counters show it). Sweep telemetry lands in ``stats.tuning``.
         """
         from repro_torch.core.executor import program_cache_size
 
-        if autotune:
-            raise NotImplementedError(
-                "warmup(autotune=True) needs the kernel autotuner, which is "
-                "not ported yet: ROADMAP A13")
         before = program_cache_size()
         k = self.num_samples
-        buckets = set()
+        by_bucket: Dict[Tuple[int, int], List[GraphPlan]] = {}
         for g in graphs:
             # Same resolution helper as admission — warmup can never plan
             # a graph differently from the admission that will follow it.
-            buckets.add(self._plan_for(g).bucket)
-        for R, W in sorted(buckets):
+            plan = self._plan_for(g)
+            by_bucket.setdefault(plan.bucket, []).append(plan)
+        for bucket in sorted(by_bucket):
+            R, W = bucket
             pads, g_pad = set(), 1
             while g_pad <= next_pow2(self.max_batch):
                 pads.add(self.executor.group_pad(g_pad))
                 g_pad *= 2
+            if autotune:
+                self._autotune_bucket(by_bucket[bucket], sorted(pads),
+                                      candidates, repeats)
             for gp in sorted(pads):
                 b = gp * k
                 ell = np.full((b, R, W), R, dtype=np.int32)
@@ -536,7 +550,59 @@ class ClusterBatcher:
                 self.executor.submit(ell, ranks, elig, m, k=k, track=False,
                                      method=self.method,
                                      objective=self.objective).result()
+        if autotune:
+            from repro_torch.kernels.autotune import tuning_info
+
+            self.stats.tuning = tuning_info()
         return program_cache_size() - before
+
+    def _autotune_bucket(self, plans, pads, candidates, repeats) -> None:
+        """Sweep B1/B2 launch plans for one bucket, per distinct batch
+        tier, over real packed tensors on the engine's device — skipping
+        already-tuned tiers (checked through ``TuningCache.get`` with
+        counting on, so warmup hits/misses are observable).
+
+        The tensors pack into leased pool staging — the same
+        ``pack_bucket`` + :class:`~repro_torch.core.plan.BucketBufferPool`
+        path flushes use — so the pool's lease invariant covers the sweep
+        too. The lease is released right after the sweep returns: the
+        sweep copies the staging to the device and synchronises on every
+        timing, so nothing in flight reads it afterwards.
+        """
+        from repro_torch.core import rng
+        from repro_torch.core.executor import _to_device
+        from repro_torch.core.plan import pack_bucket
+        from repro_torch.kernels import autotune as _at
+
+        cache = _at.tuning_cache()
+        R, W = plans[0].bucket
+        k = self.num_samples
+        done_tiers = set()
+        for gp in pads:
+            tier = _at.batch_tier(gp * k)
+            if tier in done_tiers:
+                continue
+            done_tiers.add(tier)
+            if all(cache.get(kern, R, W, tier, device=self.device)
+                   is not None for kern in _at.KERNELS):
+                continue        # tuned by an earlier process: zero sweeps
+            # Fill the padded group axis with real plans (cycling the
+            # samples) so the measured tensors match what flushes run.
+            use = list(plans)
+            while len(use) < gp:
+                use.extend(plans)
+            use = use[:gp]
+            keys = [sample_keys(rng.PRNGKey(i), k) for i in range(len(use))]
+            lease = self.pool.acquire(gp * k, R, W)
+            try:
+                ell, ranks, elig, _m, _pad = pack_bucket(
+                    use, keys, k=k, g_pad=gp, staging=lease.arrays)
+                _at.sweep_bucket(*(_to_device(a, self.device)
+                                   for a in (ell, ranks, elig)),
+                                 cache=cache, candidates=candidates,
+                                 repeats=repeats)
+            finally:
+                lease.release()
 
     # -- Internals ---------------------------------------------------------
 

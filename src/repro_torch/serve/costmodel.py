@@ -134,6 +134,7 @@ class FlushCostModel:
         self._group_pad: Callable[[int], int] = lambda n: next_pow2(max(1, n))
         self._k = 1
         self._objective = "disagree"
+        self._device = None
         self._bound = False
 
     def bind_engine(self, *, executor=None, num_samples: int = 1,
@@ -147,6 +148,9 @@ class FlushCostModel:
         unbound model still prices padding with plain pow2 rules."""
         if executor is not None:
             self._group_pad = executor.group_pad
+            # The device the executor runs on: the probe resolves tuned
+            # launch plans for it exactly as the executor's submit does.
+            self._device = getattr(executor, "device", None)
         self._k = max(1, int(num_samples))
         self._objective = objective
         self._bound = True
@@ -190,7 +194,8 @@ class FlushCostModel:
         method = prefix[0] if prefix else "pivot"
         if program_cache_contains((b1, R, W), self._k,
                                   method=method,
-                                  objective=self._objective):
+                                  objective=self._objective,
+                                  device=self._device):
             return 0.0
         if telemetry is not None:
             learned = telemetry.bucket_ewma_compile(bucket)

@@ -15,7 +15,12 @@ and returns from ``submit`` before the flush ends. B4 is held to its plain versi
 2e-2 (bf16), the reference's own kernel tolerances (sums in another
 order; a bf16 output may round one unit apart), at outputs in
 [4.5, 7.5] within 2e-2 of the plain version's f32 output, and the smoke LM's
-prefill on the card to the CPU's within 1e-4 (two f32 layers).
+prefill on the card to the CPU's within 1e-4 (two f32 layers). The
+autotuner's cases: every candidate launch plan of B1 and B2 at a staged
+and an l2 default equal to the plain version, ``sweep_bucket`` recording a
+winner no faster than its roofline model, ``bucket_impl`` under every
+candidate pair bit-equal to the untuned program, and
+``dedup_corpus_batched`` on the card equal to the CPU (120 documents).
 """
 
 import numpy as np
@@ -642,3 +647,113 @@ def test_cuda_agreement_kernel_equals_plain(cuda, B, R, W, deg, replicas,
         (0, R, W)
     with pytest.raises(ValueError, match="replicas"):
         ag.agreement_ell_batch(ell[:1], replicas=2)
+
+
+# --- The autotuner's candidates and the dedup path ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(192, 4096, 32), (64, 8, 4)])
+def test_cuda_every_candidate_plan_equals_plain(cuda, shape):
+    """Every launch plan the autotuner may pick for B1 and B2, at a staged
+    and an l2 default, against the plain version."""
+    from repro_torch.kernels import autotune as at
+
+    e, r, a, lab = _inputs(*shape, seed=sum(shape), dev=cuda)
+    cands = at.candidate_plans(*shape, cuda)
+    assert {c.route for c in cands} == {"l2", "staged"}
+    want_nm = ref.neighbor_min_ref(e, r, a)
+    want_la = ref.label_agree_ref(e, lab)
+    for choice in cands:
+        plan = choice.launch_plan(*shape)
+        assert torch.equal(nm.neighbor_min_ell_batch(e, r, a, plan=plan),
+                           want_nm), choice.name
+        assert torch.equal(nm.label_agree_ell_batch(e, lab, plan=plan),
+                           want_la), choice.name
+
+
+def _tuning_graphs(cuda, count=6, n=(300, 900), seed=4):
+    rng = np.random.default_rng(seed)
+    return [build_graph(int(m), random_arboric(int(m), 2, rng)[0],
+                        device=cuda)
+            for m in rng.integers(n[0], n[1], count)]
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_records_a_winner(cuda, tmp_path):
+    from repro_torch.core.api import sample_keys
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch.roofline import ell_kernel_roofline
+
+    prev = at.set_tuning_cache(at.TuningCache(str(tmp_path / "t.json")))
+    try:
+        graphs = _tuning_graphs(cuda)
+        plans = [tplan.plan_graph(g) for g in graphs]
+        bucket = plans[0].bucket
+        plans = [p for p in plans if p.bucket == bucket]
+        keys = [sample_keys(PRNGKey(i), 3) for i in range(len(plans))]
+        ell, ranks, elig, _, _ = tplan.pack_bucket(plans, keys, k=3)
+        args = [torch.from_numpy(x).to(cuda) for x in (ell, ranks, elig)]
+        records = at.sweep_bucket(*args, repeats=2)
+        B, R, W = ell.shape
+        cache = at.tuning_cache()
+        for rec in records:
+            assert rec["equal"] and rec["winner"] in rec["candidates"]
+            assert rec["default"] == rec["candidates"][0]
+            assert rec["winner_ms"] <= rec["default_ms"]
+            model = ell_kernel_roofline(rec["kernel"], B, R, W).t_model
+            for ms in rec["timings_ms"].values():
+                assert ms * 1e-3 >= model, rec
+            assert cache.get(rec["kernel"], R, W, at.batch_tier(B),
+                             device=cuda).name == rec["winner"]
+        assert at.TuningCache(str(tmp_path / "t.json")).get(
+            "neighbor_min", R, W, at.batch_tier(B), device=cuda) is not None
+    finally:
+        at.set_tuning_cache(prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program,objective", [("pivot", "disagree"),
+                                               ("precluster", "minmax")])
+def test_cuda_tuned_bucket_impl_equals_untuned(cuda, program, objective):
+    """bucket_impl under every candidate plan pair is bit-equal to the
+    untuned program."""
+    from repro_torch.core import programs
+    from repro_torch.core.api import sample_keys
+    from repro_torch.kernels import autotune as at
+
+    graphs = _tuning_graphs(cuda, seed=5)
+    plans = [tplan.plan_graph(g, method=program) for g in graphs]
+    plans = [p for p in plans if p.bucket == plans[0].bucket]
+    keys = [sample_keys(PRNGKey(i), 3) for i in range(len(plans))]
+    host = tplan.pack_bucket(plans, keys, k=3)[:4]
+    args = [torch.from_numpy(x).to(cuda) for x in host]
+    want = programs.bucket_impl(*args, k=3, program=program,
+                                objective=objective)
+    B, R, W = host[0].shape
+    for choice in at.candidate_plans(B, R, W, cuda):
+        for pair in ((choice, choice), (choice, at.PlanChoice("l2"))):
+            got = programs.bucket_impl(*args, k=3, program=program,
+                                       objective=objective, plans=pair)
+            for a, b in zip(want, got):
+                assert torch.equal(a, b), (choice.name, pair)
+
+
+@pytest.mark.cuda
+def test_cuda_dedup_batched_equals_cpu(cuda):
+    from repro_torch.data import dedup, synthetic
+
+    corpus = synthetic.synthetic_corpus(n_docs=120, dup_fraction=0.4,
+                                        mutate_p=0.05, seed=2)
+    want = dedup.dedup_corpus_batched(corpus, threshold=0.45, seed=3,
+                                      device="cpu")
+    nm.reset_launch_counts()
+    got = dedup.dedup_corpus_batched(corpus, threshold=0.45, seed=3,
+                                     device=cuda)
+    assert nm.launches["neighbor_min_ell_batch"] > 0
+    assert nm.launches["label_agree_ell_batch"] > 0
+    assert np.array_equal(got.labels, want.labels)
+    assert np.array_equal(got.keep, want.keep)
+    assert got.clustering.cost == want.clustering.cost
+    assert got.clustering.info == want.clustering.info
+    assert got.n_edges == want.n_edges
