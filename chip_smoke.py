@@ -143,12 +143,30 @@ Phases, in order; any failure raises and exits non-zero:
    entry; phase 5's trace served untuned and tuned (sync executor, cost
    policy, A B B A), every tuned result equal to the untuned one, the
    program keys carrying the tuned plans, requests/s of each pass;
-10. summary: a ``tuning`` JSON line, the card line, a ``kernels`` JSON line
+10. the training path (``repro_torch.launch.train``): (a) ``run`` at
+   smollm-135m's full width (30 layers, d = 576, vocabulary 49,152, f32
+   weights and AdamW state), 20 steps of 8 sequences of 1,024 tokens,
+   checkpoints every 5, the dedup stage on: its wall, median step ms,
+   tokens/s, peak memory, B3's launches in the dedup stage and none of B4
+   (training takes chunked attention; counts zeroed just before, read just
+   after), then B3 on every route held to its plain version at the inputs
+   the stage gave it (k = 4, n = 300) and the stage's kept documents,
+   labels and batches held to the CPU's; the cost of deterministic mode (step ms with and without it,
+   A B B A) and the card's busy share over 3 traced steps; (b)
+   ``fail_at=10`` then ``resume``: losses 10–19 equal (a)'s bit for bit;
+   (c) 2 full-width steps at ``accum_steps=2`` with compression, sequences
+   of 128, 4 a step, each from the CPU's state: loss within 1e-5 and
+   grad_norm within 1e-3 of the CPU's; (d) B4 refuses q, k, v that require
+   grad; (e) ``launch/cluster_dryrun.run`` at n = 2¹⁷ with its byte and
+   time model; (f) every module of ``repro_torch.examples`` on the card;
+11. summary: a ``training`` and a ``tuning`` JSON line, the card line, a
+   ``kernels`` JSON line
    (B1, B2, B3 as the fused kernel and as the window mode, B4, the
    agreement kernel with its route, replicas and both bounds; B1 also on
    the agreement graphs, B4 also at head dims 80 and 160; B1's and B2's
    main-path rows also with their launches on the dedup path and the
-   tuned winner beside the default), and last
+   tuned winner beside the default; B3's with its launches and its check
+   in the training launcher's dedup stage), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -159,6 +177,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2371,6 +2390,399 @@ def autotune_phase(dev, card, seed):
     return rec
 
 
+# The training path (phase 10): smollm-135m at full width, the reference
+# launcher's full-size settings (chunked attention, loss chunks of 256), 8
+# sequences of 1,024 tokens a step.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_STEPS = 20
+TRAIN_SEQ = 1024
+TRAIN_BATCH = 8
+TRAIN_FAIL_AT = 10
+TRAIN_TRACED_STEPS = 3
+TRAIN_TIMED_STEPS = 3
+# (c) against the CPU: the CPU tests' tolerances (tests/test_torch_train.py):
+# the loss to 1e-5, grad_norm to 1e-3 with compression (a value near a
+# half quantum may round either way).
+TRAIN_CPU_SEQ = 128
+TRAIN_CPU_BATCH = 4
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GNORM_TOL = 1e-3
+
+
+class KeepB3Calls:
+    """For one run, wraps B3's wrapper where the per-graph engine and the
+    MIS rounds call it and keeps a copy of the inputs of every call: the
+    real arrays the run gave the kernel. The kernel still launches and
+    counts."""
+
+    def __init__(self):
+        import importlib
+
+        # The modules themselves: ``repro_torch.core.pivot`` is also the
+        # name of a function there.
+        pivot, mis, mis_pivot = (importlib.import_module(f"repro_torch.{m}")
+                                 for m in ("core.pivot", "core.mis",
+                                           "kernels.mis_pivot"))
+        self.sites = ((pivot, "mis_pivot_csr"), (mis_pivot, "mis_pivot_csr"))
+        self.fn = mis_pivot.mis_pivot_csr
+        self.calls = []
+        assert mis._mp is mis_pivot
+
+    def __enter__(self):
+        def wrapped(*args, **kw):
+            self.calls.append([t.clone() for t in args])
+            return self.fn(*args, **kw)
+        for mod, name in self.sites:
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.sites:
+            setattr(mod, name, self.fn)
+
+
+def train_dedup_check(b3bench, kept, cfg, dev, card, seed):
+    """(10a) B3 held to its plain version on every route at the inputs the
+    training launcher's dedup stage gave it, timed; and the stage's kept
+    documents, labels and first batches on the card equal to the CPU's."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import train
+
+    rows = []
+    for row_offsets, dst, ranks, eligible in kept:
+        g = SimpleNamespace(row_offsets=row_offsets, dst=dst)
+        row = b3bench.run(g, ranks, eligible)
+        rows.append(row)
+        print(f"  (10a) dedup stage's B3 call (k, n, 2m) = {row['shape']}: "
+              f"equal to the plain version on {'+'.join(row['equal_on'])}; "
+              f"device ms: kernel {fmt_ms(row['ms'])}, plain "
+              f"{fmt_ms(row['plain_ms'])}, bound {row['bound_ms']:.6f} "
+              f"({row['bound_by']})  [{card}]")
+    (_, on_card), (_, on_cpu) = (train.dedup_stage(cfg, seed, d)
+                                 for d in (dev, "cpu"))
+    if not (np.array_equal(on_card.keep, on_cpu.keep)
+            and np.array_equal(on_card.labels, on_cpu.labels)):
+        raise AssertionError("(10a) the dedup stage's kept documents or "
+                             "labels differ between the card and the CPU")
+    pipes = [train.build_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, dedup=True,
+                                  seed=seed, device=d) for d in (dev, "cpu")]
+    for step in range(TRAIN_STEPS):
+        a, b = (p.batch_at(step) for p in pipes)
+        if not all(np.array_equal(a[k], b[k]) for k in b):
+            raise AssertionError(f"(10a) batch {step} of the deduped "
+                                 f"pipeline differs from the CPU's")
+    print(f"  (10a) dedup stage on the card equals the CPU's: "
+          f"{int(on_cpu.keep.sum())} of {on_cpu.keep.size} documents kept, "
+          f"the same labels, batches 0-{TRAIN_STEPS - 1} equal  [{card}]")
+    return rows
+
+
+def training_phase(dev, card, seed, b3bench):
+    """(10) The training path: (a) ``launch.train.run`` at full width (the
+    dedup stage launches B3, held after the run to its plain version at the
+    inputs it was given and to the CPU's stage; B4 is never launched:
+    training takes chunked attention), step walls, tokens/s, peak memory,
+    the card's busy share over traced steps, and the cost of deterministic
+    mode, A B B A; (b)
+    ``--fail-at`` then ``--resume`` equal to (a) bit for bit; (c) two steps
+    at ``accum_steps=2`` with compression against the CPU from the same
+    state; (d) B4's gradient guard; (e) the cluster dry run at its default
+    size; (f) every example module on the card."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (batch_serving, dedup_pipeline,
+                                      forest_clustering, quickstart,
+                                      serve_decode, train_smollm)
+    from repro_torch.kernels import flash_attention as fa, mis_pivot
+    from repro_torch.launch import cluster_dryrun, train
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.train.fault import SimulatedFailure
+
+    rec: dict = {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    common = dict(arch=TRAIN_ARCH, smoke=False, seq_len=TRAIN_SEQ,
+                  global_batch=TRAIN_BATCH, steps=TRAIN_STEPS, dedup=True,
+                  seed=seed, log_every=5, device=dev)
+    try:
+        # (a) The full-width run, with its dedup stage.
+        mis_pivot.reset_launch_counts()
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with KeepB3Calls() as kept:
+            whole = train.run(ckpt_dir=str(tmp / "a"), resume=False,
+                              fail_at=None, ckpt_every=5, **common)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b3 = mis_pivot.launches["mis_pivot"]
+        b4 = fa.launches["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        losses = whole["losses"]
+        step_ms = float(np.median(whole["step_s"])) * 1e3
+        if dev.type == "cuda" and (b3 < 1 or b4 != 0):
+            raise AssertionError(f"(a) the dedup stage launched B3 {b3} "
+                                 f"times and training B4 {b4} times "
+                                 f"(want >= 1 and 0)")
+        if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
+            raise AssertionError(f"(a) losses {losses}")
+        shutil.rmtree(tmp / "a")
+        rec.update(wall_s=wall, losses=losses, step_s=whole["step_s"],
+                   median_step_ms=step_ms,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+                   peak_bytes=peak, b3_launches_dedup=b3, b4_launches=b4)
+        print(f"  (10a) {TRAIN_ARCH} full width, {TRAIN_STEPS} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: wall {wall:.2f} s, "
+              f"median step {step_ms:.2f} ms "
+              f"({rec['tokens_per_s']:.1f} tokens/s), peak "
+              f"{peak / 2**30:.2f} GiB, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; dedup stage: B3 launched {b3} times; B4 "
+              f"{b4}  [{card}]")
+        if dev.type == "cuda" and not kept.calls:
+            raise AssertionError("(a) no B3 call was kept")
+        rec["b3_dedup_rows"] = train_dedup_check(
+            b3bench, kept.calls, get_config(TRAIN_ARCH), dev, card, seed)
+        del kept
+
+        # (b) Fail at step 10, resume: the same losses bit for bit.
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                train.run(ckpt_dir=str(tmp / "b"), resume=False,
+                          fail_at=TRAIN_FAIL_AT, ckpt_every=TRAIN_FAIL_AT,
+                          **common)
+            except SimulatedFailure:
+                pass
+            else:
+                raise AssertionError("(b) --fail-at raised nothing")
+            resumed = train.run(ckpt_dir=str(tmp / "b"), resume=True,
+                                fail_at=None, ckpt_every=TRAIN_FAIL_AT,
+                                **common)
+        if resumed["losses"] != losses[TRAIN_FAIL_AT:]:
+            raise AssertionError(f"(b) resumed losses {resumed['losses']} "
+                                 f"differ from {losses[TRAIN_FAIL_AT:]}")
+        shutil.rmtree(tmp / "b")
+        rec["restart_bitwise"] = True
+        print(f"  (10b) --fail-at {TRAIN_FAIL_AT} then --resume: losses "
+              f"{TRAIN_FAIL_AT}-{TRAIN_STEPS - 1} equal the uninterrupted "
+              f"run's bit for bit  [{card}]")
+
+        # Traced steps and deterministic mode's cost, on the run's model.
+        cfg = get_config(TRAIN_ARCH)
+        rc = RunConfig(attn_impl="chunked", loss_chunk=min(256, TRAIN_SEQ))
+        model = build_model(cfg, device=dev, rc=rc,
+                            generator=torch.Generator().manual_seed(seed))
+        oc = optimizer.OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)
+        state = train_step.init_train_state(model, oc)
+        step_fn = train_step.make_train_step(model, oc)
+        pipe = train.build_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, dedup=False,
+                                    seed=seed, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(0).items()}
+
+        def steps(n):
+            nonlocal state
+            for _ in range(n):
+                state, m = step_fn(state, batch)
+            float(m["loss"])
+
+        def timed(det):
+            ctx = train.deterministic(dev) if det else contextlib.nullcontext()
+            with ctx:
+                steps(1)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                steps(TRAIN_TIMED_STEPS)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t) / TRAIN_TIMED_STEPS * 1e3
+
+        det_ms = {True: [], False: []}
+        for det in (True, False, False, True):
+            det_ms[det].append(timed(det))
+        # Device time a step without deterministic mode: its cost on the
+        # card, free of the host's noise.
+        loose = device_events(lambda: steps(TRAIN_TRACED_STEPS))
+        with train.deterministic(dev):
+            t0 = time.perf_counter()
+            events = device_events(lambda: steps(TRAIN_TRACED_STEPS))
+            traced = time.perf_counter() - t0
+        busy = sum(us for _, us in events) / 1e6 if events else None
+        loose_ms = (sum(us for _, us in loose) / 1e3 / TRAIN_TRACED_STEPS
+                    if loose else None)
+        by_name: dict = {}
+        for name, us in events or []:
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        untraced = float(np.mean(det_ms[True]))
+        rec.update(deterministic_step_ms=det_ms[True],
+                   nondeterministic_step_ms=det_ms[False],
+                   traced_wall_s=traced, device_busy_s=busy,
+                   device_events=len(events or []),
+                   device_ms_per_step=None if busy is None else
+                   busy / TRAIN_TRACED_STEPS * 1e3,
+                   nondeterministic_device_ms_per_step=loose_ms,
+                   top_kernels_ms=top)
+        print(f"  (10a) step ms, A B B A, {TRAIN_TIMED_STEPS} steps a pass: "
+              f"deterministic {det_ms[True][0]:.2f} / {det_ms[True][1]:.2f},"
+              f" not {det_ms[False][0]:.2f} / {det_ms[False][1]:.2f}  "
+              f"[{card}]")
+        if busy is not None:
+            per_step = busy / TRAIN_TRACED_STEPS * 1e3
+            print(f"  (10a) {TRAIN_TRACED_STEPS} traced steps: device busy "
+                  f"{busy:.3f} s of {traced:.3f} s traced wall "
+                  f"({100 * busy / traced:.1f} %; the profiler slows the "
+                  f"host), {len(events) / TRAIN_TRACED_STEPS:.0f} device "
+                  f"events a step; {per_step:.1f} device ms a step against "
+                  f"{untraced:.1f} ms untraced ({100 * per_step / untraced:.1f}"
+                  f" %); without deterministic mode "
+                  f"{fmt_ms(loose_ms)} device ms a step  [{card}]")
+            for name, ms in top:
+                print(f"      {ms / TRAIN_TRACED_STEPS:9.2f} ms a step  "
+                      f"{name[:90]}")
+        del model, state, step_fn, batch
+        torch.cuda.empty_cache()
+
+        # (c) accum_steps=2 with compression, against the CPU.
+        rec["cpu_check"] = train_cpu_check(dev, card, seed)
+
+        # (d) B4's gradient guard on the card (the CPU's plain version is
+        # differentiable and takes such inputs).
+        if dev.type == "cuda":
+            rec["b4_guard"] = b4_guard_check(dev)
+            print(f"  (10d) B4 refuses q, k, v that require grad; under "
+                  f"no_grad it launches  [{card}]")
+
+        # (e) The cluster dry run at its default size.
+        t0 = time.perf_counter()
+        dry = cluster_dryrun.run(device=dev)
+        dry["wall_s"] = time.perf_counter() - t0
+        dry["link_bytes_per_s"] = cluster_dryrun.link_bytes_per_s(256)
+        rec["dryrun"] = dry
+        print(f"  (10e) cluster dry run n={dry['n']} m={dry['m']} "
+              f"(256 cards): depth raw {dry['depth_raw']} / capped "
+              f"{dry['depth_capped']}, {len(dry['phases'])} phases, "
+              f"{dry['high_degree']} high-degree; bytes a round "
+              f"{dry['bytes_per_round_unpacked']} / "
+              f"{dry['bytes_per_round_packed']} (packed); collective s "
+              f"{dry['t_collective_s']}, compute s {dry['t_compute_s']:.3e}"
+              f" (H100 rates: {dry['link_bytes_per_s'] / 1e9:.0f} GB/s a "
+              f"card's link, 67 TOP/s); wall {dry['wall_s']:.2f} s  "
+              f"[{card}]")
+
+        # (f) Every example module on the card.
+        rec["examples_s"] = {}
+        for mod, argv in (
+                (quickstart, []), (forest_clustering, []),
+                (dedup_pipeline, []), (batch_serving, []),
+                (serve_decode, []),
+                (train_smollm, ["--ckpt-dir", str(tmp / "example")])):
+            name = mod.__name__.rsplit(".", 1)[1]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv + ["--device", dev.type])
+            rec["examples_s"][name] = time.perf_counter() - t0
+            last = buf.getvalue().strip().splitlines()[-1]
+            print(f"  (10f) examples.{name}: "
+                  f"{rec['examples_s'][name]:.2f} s, last line: {last}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (10) {rec['phase_s']:.1f} s in all  [{card}]")
+    return rec
+
+
+def b4_guard_check(dev) -> bool:
+    """B4 raises on CUDA inputs that require grad, and launches for the
+    same inputs under ``torch.no_grad()``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.randn(1, 9, 64, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 3, 64, 64, device=dev)
+    v = torch.randn(1, 3, 64, 64, device=dev)
+    try:
+        fa.flash_attention(q, k, v)
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+    else:
+        raise AssertionError("(10d) B4 took an input that requires grad")
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if fa.launches["flash_attention"] != 1:
+        raise AssertionError("(10d) B4 under no_grad did not launch")
+    return True
+
+
+def train_cpu_check(dev, card, seed):
+    """(10c) Two full-width steps at ``accum_steps=2`` with
+    ``compress_cross_pod=True`` on the card and on the CPU, each step from
+    the same state (the CPU's carried to the card first): loss and
+    grad_norm within the CPU tests' tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.train import optimizer, train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    rc = RunConfig(attn_impl="chunked", loss_chunk=min(256, TRAIN_CPU_SEQ))
+    oc = optimizer.OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)
+    sc = train_step.StepConfig(accum_steps=2, compress_cross_pod=True)
+    sides = {}
+    for side, d in (("cpu", "cpu"), ("card", dev)):
+        model = build_model(cfg, device=d, rc=rc,
+                            generator=torch.Generator().manual_seed(seed))
+        state = train_step.init_train_state(model, oc, sc)
+        sides[side] = [model, state,
+                       train_step.make_train_step(model, oc, sc)]
+    cpu, card_side = sides["cpu"], sides["card"]
+    pipe = train.build_pipeline(cfg, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH,
+                                dedup=False, seed=seed, device="cpu")
+    out = []
+    for i in range(2):
+        with torch.no_grad():                     # carry the CPU's state
+            for part in ("params", "err"):
+                for n, t in getattr(card_side[1], part).items():
+                    t.copy_(getattr(cpu[1], part)[n])
+            for part in ("mu", "nu"):
+                for n, t in getattr(card_side[1].opt, part).items():
+                    t.copy_(getattr(cpu[1].opt, part)[n])
+        card_side[1] = card_side[1]._replace(
+            opt=card_side[1].opt._replace(step=cpu[1].opt.step))
+        batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
+        cpu[1], want = cpu[2](cpu[1], batch)
+        with train.deterministic(dev):
+            card_side[1], got = card_side[2](
+                card_side[1], {k: v.to(dev) for k, v in batch.items()})
+        row = {k: (float(got[k]), float(want[k]))
+               for k in ("loss", "grad_norm", "lr")}
+        out.append(row)
+        for k, tol in (("loss", TRAIN_LOSS_TOL),
+                       ("grad_norm", TRAIN_GNORM_TOL)):
+            g, w = row[k]
+            if not abs(g - w) <= tol * abs(w):
+                raise AssertionError(f"(10c) step {i} {k}: card {g}, CPU "
+                                     f"{w} (tolerance {tol} relative)")
+        if row["lr"][0] != row["lr"][1]:
+            raise AssertionError(f"(10c) step {i} lr {row['lr']}")
+        print(f"  (10c) accum 2 + compression, step {i}: loss card "
+              f"{row['loss'][0]:.6f} / CPU {row['loss'][1]:.6f}, grad_norm "
+              f"{row['grad_norm'][0]:.6f} / {row['grad_norm'][1]:.6f}  "
+              f"[{card}]")
+    del sides, cpu, card_side
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2396,6 +2808,10 @@ def main() -> int:
                         "the agreement kernel at replicas 1 on the same "
                         "inputs")
     args = parser.parse_args()
+    # Phase 10 trains under torch.use_deterministic_algorithms, whose
+    # cuBLAS products need the workspace set before the first one runs.
+    from repro_torch.launch.train import set_cublas_workspace
+    set_cublas_workspace()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card",
               file=sys.stderr)
@@ -2702,6 +3118,18 @@ def main() -> int:
             row["tuned"] = {k: at_shape[k] for k in (
                 "batch", "R", "W", "default", "default_ms", "winner",
                 "winner_ms", "model_ms")}
+    # 10. The training path; B3's row gains its launches in the training
+    # launcher's dedup stage.
+    train_rec = training_phase(dev, card, args.seed, b3bench)
+    record["training"] = train_rec
+    for row in kernels:
+        if row["name"] == "mis_pivot":
+            row["launches_train_dedup"] = train_rec["b3_launches_dedup"]
+            row["max_abs_err"] = b3bench.max_err
+            row["train_dedup"] = [
+                {k: r[k] for k in ("shape", "variant", "equal_on", "ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
+                for r in train_rec["b3_dedup_rows"]]
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2709,7 +3137,14 @@ def main() -> int:
         args.out.write_text(json.dumps(record, indent=1, default=lambda o:
                                        o.item()))
 
-    # 10. Summary.
+    # 11. Summary.
+    print(json.dumps({"training": {
+        k: train_rec[k] for k in (
+            "wall_s", "median_step_ms", "tokens_per_s", "peak_bytes",
+            "device_busy_s", "traced_wall_s", "device_ms_per_step",
+            "nondeterministic_device_ms_per_step", "deterministic_step_ms",
+            "nondeterministic_step_ms", "b3_launches_dedup",
+            "restart_bitwise")}}))
     print(json.dumps({"tuning": {
         "entries": tune["entries"], "sweeps": tune["sweeps_n"],
         "warmup_s": tune["warmup_s"], "second": tune["second"],

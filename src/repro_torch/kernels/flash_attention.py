@@ -32,6 +32,14 @@ reference's kernel does.
 The tensor's device alone picks the implementation: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.attention_ref`.
+
+The kernel has no backward, as the reference's Pallas kernel has none (no
+``custom_vjp``): its output, written through ``ctypes``, carries no
+``grad_fn``. So a CUDA call under grad mode with any of q, k, v requiring
+grad raises (:func:`refuses_grad`) instead of returning an output that
+would silently stop the gradient; training takes ``attn_impl="chunked"``
+(``repro_torch.models.attention``), as the reference's ``launch/train.py`` does. The
+CPU's plain version is differentiable and unchanged.
 """
 
 from __future__ import annotations
@@ -116,6 +124,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, H, KH, Sq, Sk, D
 
 
+def refuses_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a call on these inputs would need B4's gradient: grad mode
+    is on and q, k or v requires grad. The card refuses such a call."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+
 def smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     """Dynamic shared memory of one block of the kernel (two stages of K
     and V tiles), as the built library reports it."""
@@ -132,6 +147,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, KH, Sq, Sk, D = _check(q, k, v, causal)
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal)
+    if refuses_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention: kernel B4 has no backward (the reference's "
+            "Pallas kernel has none either), so its output would carry no "
+            "gradient to q, k, v; train with attn_impl='chunked' or call "
+            "it under torch.no_grad()")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     code = _lib().fa_forward(
@@ -147,5 +168,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-__all__ = ["flash_attention", "smem_bytes", "launches",
+__all__ = ["flash_attention", "refuses_grad", "smem_bytes", "launches",
            "instance_launches", "reset_launch_counts", "HEAD_DIMS"]

@@ -28,6 +28,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM peak outside the tensor cores
 TF32_TENSOR_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+# Links between H100 SXM cards (NVIDIA's data sheets): NVLink 4 joins the
+# 8 cards of a node all to all at 900 GB/s a card, 450 GB/s each way;
+# between nodes each card has its own 400 Gb/s NDR InfiniBand port (DGX
+# H100: eight ConnectX-7), 50 GB/s each way.
+NVLINK_BYTES_PER_S = 450e9
+INFINIBAND_BYTES_PER_S = 50e9
+CARDS_PER_NODE = 8
 INF = 2**31 - 1
 
 # B4 shapes (B, H, KH, Sq, Sk, D, causal, dtype): the reference's kernel

@@ -16,7 +16,8 @@ from torch import nn
 
 
 def weight(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: a parameter no gradient is taken through."""
+    """A weight, built frozen for serving; ``train.train_step.
+    init_train_state`` turns a model's weights trainable."""
     return nn.Parameter(t, requires_grad=False)
 
 

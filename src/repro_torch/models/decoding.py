@@ -3,9 +3,12 @@
 The port of ``repro/models/decoding.py``'s dense branch. Caches are a dict
 ``{"k", "v"}`` of ``(L, B, S, KH, hd)`` tensors, bf16 by default as in the
 reference. :func:`prefill` writes the prompt's keys and values (after
-RoPE) into fresh zero caches; :func:`decode_step` writes one position of
-every layer's cache in place, where the reference threads the caches
-through its layer scan and returns new ones. Other families raise
+RoPE) into fresh zero caches, every layer's attention through kernel B4
+whatever the model's ``RunConfig`` says; :func:`decode_step` writes one
+position of every layer's cache in place, where the reference threads the
+caches through its layer scan and returns new ones. Both run under
+``torch.no_grad()``: serving takes no gradient, so weights made trainable
+by training serve through B4 as well. Other families raise
 ``NotImplementedError`` (ROADMAP A18).
 """
 
@@ -39,6 +42,7 @@ def _logits(params: Transformer, cfg: ModelConfig,
     return torch.matmul(last.float(), lm_head(params, cfg).float())
 
 
+@torch.no_grad()
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
             cache_dtype: torch.dtype = torch.bfloat16):
@@ -51,7 +55,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     caches = init_caches(cfg, b, cache_len, cache_dtype, x.device)
     for layer, p in enumerate(params.blocks):
         out = attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
-                        positions, return_kv=True)
+                        positions, impl="pallas", return_kv=True)
         x = x + out.out
         x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
         caches["k"][layer, :, :s] = out.k.to(cache_dtype)
@@ -59,6 +63,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x), caches
 
 
+@torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
                 caches: Dict[str, torch.Tensor], pos: int):
     """token (B,); pos an int. Returns (logits (B, Vpad) in f32, caches).

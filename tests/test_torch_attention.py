@@ -222,7 +222,8 @@ def test_attention_with_kv_matches_reference(smoke_pair):
                                    jnp.asarray(x), jnp.asarray(pos),
                                    impl="pallas", return_kv=True)
     got = attention.attention(model.blocks[0].attn, cfg, torch.from_numpy(x),
-                              torch.from_numpy(pos), return_kv=True)
+                              torch.from_numpy(pos), impl="pallas",
+                              return_kv=True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
                                    atol=1e-5)

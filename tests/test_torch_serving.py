@@ -49,12 +49,19 @@ def _words(key):
 
 @pytest.fixture(autouse=True)
 def _unpin_program_registry():
-    """The cost policy pins shapes in the process-global registry; never
-    let pins leak between tests."""
+    """The cost policy pins shapes in the process-global registry, and the
+    registry tests fill it with keys of their own; never let pins or
+    entries leak between tests (later tests of the process, in other files
+    too, count new entries against the registry's capacity)."""
+    with executor._cache_lock:
+        saved = executor._program_cache.copy()
     yield
     for bucket in executor.program_cache_info()["pinned"]:
         while executor.program_cache_unpin(tuple(bucket)):
             pass
+    with executor._cache_lock:
+        executor._program_cache.clear()
+        executor._program_cache.update(saved)
 
 
 def _edges(n, seed, lam=1):
