@@ -159,14 +159,37 @@ Phases, in order; any failure raises and exits non-zero:
    grad_norm within 1e-3 of the CPU's; (d) B4 refuses q, k, v that require
    grad; (e) ``launch/cluster_dryrun.run`` at n = 2¹⁷ with its byte and
    time model; (f) every module of ``repro_torch.examples`` on the card;
-11. summary: a ``training`` and a ``tuning`` JSON line, the card line, a
-   ``kernels`` JSON line
+11. the other dense configs and mixture of experts
+   (``repro_torch.configs``): qwen3-8b, granite-3-2b, stablelm-12b and
+   olmoe-1b-7b in turn, each at its published widths and full depth with
+   f32 weights drawn on the card from ``--seed`` and freed before the next
+   (grok-1-314b fits no card): (a) phase 6's request recipe (4 prompts of
+   4–23 tokens, 4 of 512–2,000; 4 slots, cache_len 2,048) through
+   ``ContinuousBatcher`` and ``serve_all``, counts zeroed just before and
+   read just after: every request served, B4 launched layers × prefills
+   times at the config's (f32, head dim) instance and at no other; build
+   seconds, weight bytes, peak memory, prefill and decode tokens/s, the
+   wall, and for olmoe the dropped assignments per prefill; (b) the
+   config cut to 2 layers at its published widths, drawn on the card and
+   copied to the CPU: a short prompt and a 512-token one, each with 8
+   teacher-forced decode steps, logits within the config's stated
+   tolerances (``CUT_TOL``), greedy tokens equal where the CPU's top-2
+   margin exceeds twice the tolerance; for olmoe, router logits within
+   ``ROUTER_TOL``, the top-k experts of every token and layer equal
+   wherever the CPU's gap between its k-th and (k+1)-th logit exceeds
+   twice that, and the dropped assignments equal where every decision is
+   clear; (c) B4 at the config's longest served prefill against its plain
+   version, timed with its bound, SDPA's time and ptxas's registers and
+   spills of that instance;
+12. summary: an ``lm_configs``, a ``training`` and a ``tuning`` JSON line,
+   the card line, a ``kernels`` JSON line
    (B1, B2, B3 as the fused kernel and as the window mode, B4, the
    agreement kernel with its route, replicas and both bounds; B1 also on
-   the agreement graphs, B4 also at head dims 80 and 160; B1's and B2's
-   main-path rows also with their launches on the dedup path and the
-   tuned winner beside the default; B3's with its launches and its check
-   in the training launcher's dedup stage), and last
+   the agreement graphs, B4 also at head dims 80 and 160 off the path and
+   at each phase-11 config's longest prefill with its launches there; B1's
+   and B2's main-path rows also with their launches on the dedup path and
+   the tuned winner beside the default; B3's with its launches and its
+   check in the training launcher's dedup stage), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -176,11 +199,13 @@ result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -1736,6 +1761,296 @@ def entry_point_check(card):
     return {"wall_s": wall, "launches": dict(fa.launches)}
 
 
+# Phase 11: the other dense configs and mixture of experts at their
+# published widths and full depth, f32 weights drawn on the card from
+# --seed, each served with phase 6's request recipe. grok-1-314b (1,179
+# GiB of f32 weights) fits no card and waits for sharding (ROADMAP A18d).
+LM_ARCHS = ("qwen3-8b", "granite-3-2b", "stablelm-12b", "olmoe-1b-7b")
+# The CPU comparison runs a cut of each config: its published widths at
+# CUT_LAYERS layers, drawn on the card and copied to the host, on a short
+# prompt and one of CUT_LONG tokens, each followed by CUT_DECODE
+# teacher-forced decode steps.
+CUT_LAYERS = 2
+CUT_LONG = 512
+CUT_DECODE = 8
+# Tolerances of the cut against the CPU, per config. Prefill logits: two
+# f32 layers summed in another order, on logits of order 1 (phase 6 holds
+# 1e-3 over 30 layers); decode logits: keys and values through bf16 caches,
+# where one value rounded to the other side of a bf16 unit moves a logit by
+# ~1e-2 (phase 6's reasoning). Router logits (olmoe), of order 1 after a
+# norm: in prefill f32 throughout, summed in another order; in decode
+# after the bf16 caches, where one cached value rounded the other way moves
+# the first layer's attention output by up to ~4e-4 of itself, and the
+# first layer's experts (weights drawn at fan-in E, outputs of order 100)
+# carry that into the second layer's router input, so decode takes the
+# decode logits' reasoning at a tenth of phase 6's bound over two layers
+# (PERF.md §6). A routing decision is clear where the CPU's gap
+# between its k-th and (k+1)-th logit exceeds twice the tolerance.
+CUT_TOL = {arch: {"prefill": 1e-3, "decode": 5e-2} for arch in LM_ARCHS}
+ROUTER_TOL = {"prefill": 1e-4, "decode": 1e-2}
+
+
+class RouterLog:
+    """While active, wraps ``repro_torch.models.mlp._router``, which both
+    MoE dispatches call once a layer (and token chunk): per call, the token
+    count and the assignments dropped at the capacity ``capacity_factor``
+    gives that call (a device tensor, so the served run takes no extra
+    sync), and with ``logits`` also the f32 router logits and the experts
+    chosen."""
+
+    def __init__(self, capacity_factor, logits=False):
+        self.factor, self.logits = capacity_factor, logits
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self._mlp, self._inner = mlp, mlp._router
+        mlp._router = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self._mlp._router = self._inner
+
+    def _route(self, p, x, cfg):
+        gates, idx = self._inner(p, x, cfg)
+        c = self._mlp._capacity(x.shape[0], cfg, self.factor)
+        counts = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
+        call = {"tokens": x.shape[0],
+                "dropped": (counts - c).clamp(min=0).sum()}
+        if self.logits:
+            call["logits"] = self._mlp.linear(x.float(), p.router)
+            call["experts"] = idx
+        self.calls.append(call)
+        return gates, idx
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _routing_agrees(cpu_calls, card_calls, k, row, tol):
+    """(b) One forward's routing, layer by layer: router logits within
+    ``tol``, experts equal at every clear decision, dropped assignments
+    equal where every decision of the call is clear. Returns False where
+    the experts differ at an unclear decision: the two contexts part
+    there."""
+    if len(cpu_calls) != len(card_calls):
+        raise AssertionError("(b) the card and the CPU routed a different "
+                             "number of times")
+    for layer, (c, g) in enumerate(zip(cpu_calls, card_calls)):
+        err = float((g["logits"].cpu() - c["logits"]).abs().max())
+        key = "router_err_" + ("prefill" if c["tokens"] > 1 else "decode")
+        row[key] = max(row[key], err)
+        if not err <= tol:
+            raise AssertionError(f"(b) router logits {err} apart at layer "
+                                 f"{layer} (tolerance {tol})")
+        top = c["logits"].sort(dim=-1, descending=True).values
+        clear = top[:, k - 1] - top[:, k] > 2 * tol
+        same = (c["experts"].sort(dim=-1).values
+                == g["experts"].cpu().sort(dim=-1).values).all(dim=-1)
+        if bool((clear & ~same).any()):
+            raise AssertionError(f"(b) layer {layer}: a clear routing "
+                                 "decision differs from the CPU's")
+        row["decisions"] += int(clear.numel())
+        row["unclear"] += int((~clear).sum())
+        row["dropped_cpu"] += int(c["dropped"])
+        row["dropped_card"] += int(g["dropped"])
+        if bool(clear.all()) and int(c["dropped"]) != int(g["dropped"]):
+            raise AssertionError(f"(b) layer {layer}: {int(g['dropped'])} "
+                                 f"dropped on the card, "
+                                 f"{int(c['dropped'])} on the CPU")
+        if not bool(same.all()):
+            return False
+    return True
+
+
+def check_cut_against_cpu(cut, prompts, cache_len, tol, log=None):
+    """(b) The cut on the card against its copy on the CPU: per prompt the
+    prefill logits and CUT_DECODE teacher-forced decode steps (the CPU's
+    greedy token fed to both) within ``tol``, greedy tokens equal where the
+    CPU's top-2 margin exceeds twice the tolerance; with ``log`` (an MoE),
+    the routing of every forward (:func:`_routing_agrees`). Where the
+    experts differ at an unclear decision the prompt's comparison ends
+    there, and the row says so."""
+    from repro_torch.models import build_model
+
+    dev, cfg, vocab = cut.device, cut.cfg, cut.cfg.vocab_size
+    cpu = build_model(cfg, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(cut.state_dict())
+    rows = []
+    for prompt in prompts:
+        tokens = torch.as_tensor(prompt[None, :], dtype=torch.long)
+        row = {"prompt": len(prompt), "errs": [], "margins": [],
+               "router_err_prefill": 0.0, "router_err_decode": 0.0,
+               "decisions": 0, "unclear": 0,
+               "dropped_cpu": 0, "dropped_card": 0, "parted_at": None}
+        tok = cc = cg = None
+        for step in range(CUT_DECODE + 1):
+            if step == 0:
+                lc, cc = cpu.prefill(tokens, cache_len=cache_len)
+                cpu_calls = log.take() if log else []
+                lg, cg = cut.prefill(tokens.to(dev), cache_len=cache_len)
+            else:
+                pos, t = len(prompt) + step - 1, torch.tensor([tok])
+                lc, cc = cpu.decode_step(t, cc, pos)
+                cpu_calls = log.take() if log else []
+                lg, cg = cut.decode_step(t.to(dev), cg, pos)
+            kind = "prefill" if step == 0 else "decode"
+            if log and not _routing_agrees(cpu_calls, log.take(),
+                                           cfg.experts_per_tok, row,
+                                           ROUTER_TOL[kind]):
+                row["parted_at"] = step
+                break
+            step_tol = tol[kind]
+            err = float((lg.cpu() - lc).abs().max())
+            if not err <= step_tol:
+                raise AssertionError(f"(b) {cfg.name} prompt {len(prompt)} "
+                                     f"step {step}: logits {err} apart "
+                                     f"(tolerance {step_tol})")
+            margin = _margin(lc, vocab)
+            tok = int(lc[0, :vocab].argmax())
+            if margin > 2 * step_tol and int(lg[0, :vocab].argmax()) != tok:
+                raise AssertionError(f"(b) {cfg.name} prompt {len(prompt)} "
+                                     f"step {step}: greedy token differs")
+            row["errs"].append(err)
+            row["margins"].append(margin)
+        print(f"  (b) {cfg.name}, {CUT_LAYERS} layers, prompt {len(prompt)}:"
+              f" prefill logits {row['errs'][0]:.3g} apart (tol "
+              f"{tol['prefill']}), decode max "
+              f"{max(row['errs'][1:], default=0.0):.3g} (tol "
+              f"{tol['decode']}) over {len(row['errs']) - 1} steps"
+              + (f"; router logits {row['router_err_prefill']:.3g} apart "
+                 f"in prefill (tol {ROUTER_TOL['prefill']}), "
+                 f"{row['router_err_decode']:.3g} in decode (tol "
+                 f"{ROUTER_TOL['decode']}), {row['unclear']} of "
+                 f"{row['decisions']} "
+                 f"decisions unclear, dropped {row['dropped_card']} on the "
+                 f"card / {row['dropped_cpu']} on the CPU" if log else "")
+              + ("" if row["parted_at"] is None else
+                 f"; routing parted at an unclear decision at step "
+                 f"{row['parted_at']}"))
+        rows.append(row)
+    del cpu
+    return rows
+
+
+def _b4_ptxas(ptxas, head_dim):
+    """ptxas's row of B4's f32 instance at ``head_dim``."""
+    name = f"fa_forward_kernel<float, {head_dim}>"
+    return next((r for r in ptxas if r["function"] == name), None)
+
+
+def lm_config_phase(arch, dev, card, seed, abench, rng, ptxas):
+    """Phase 11 for one architecture: (a) served at full width and depth,
+    (b) its cut against the CPU, (c) B4 at its longest prefill. Returns
+    the record and the ``kernels`` row."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    moe = bool(cfg.num_experts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim}, d_ff "
+          f"{cfg.moe_d_ff or cfg.d_ff}"
+          + (f", {cfg.num_experts} experts top {cfg.experts_per_tok}"
+             if moe else "")
+          + f", vocabulary {cfg.vocab_size} (padded {cfg.padded_vocab}): "
+          f"{weight_bytes} bytes of f32 weights drawn on the card in "
+          f"{build_s:.2f} s")
+    reqs = serving_requests(np.random.default_rng([seed, 11]),
+                            cfg.vocab_size, SERVE_CACHE_LEN)
+    with (RouterLog(model.rc.moe_capacity) if moe else nullcontext()) as log:
+        rec = serving_path(model, reqs, SERVE_CACHE_LEN, card)
+    peak = torch.cuda.max_memory_allocated()
+    inst = f"float32/{cfg.head_dim}"
+    if dev.type == "cuda" and rec["b4_instance_launches"] != {
+            inst: cfg.num_layers * rec["prefills"]}:
+        raise AssertionError(f"(a) {arch}: B4 launched "
+                             f"{rec['b4_instance_launches']}, not "
+                             f"{cfg.num_layers} × {rec['prefills']} of "
+                             f"{inst}")
+    rec.update(arch=arch, build_s=build_s, weight_bytes=weight_bytes,
+               peak_bytes=peak)
+    print(f"  (a) {arch}: peak {peak} bytes allocated; B4 {inst} launched "
+          f"{rec['launches']['flash_attention']} times  [{card}]")
+    if moe:
+        calls = log.take()
+        prefill = [int(c["dropped"]) for c in calls if c["tokens"] > 1]
+        per = [sum(prefill[i:i + cfg.num_layers])
+               for i in range(0, len(prefill), cfg.num_layers)]
+        decode = sum(int(c["dropped"]) for c in calls if c["tokens"] == 1)
+        rec["dropped_per_prefill"] = per
+        rec["dropped_decode"] = decode
+        print(f"      dropped assignments per prefill (of "
+              f"{cfg.experts_per_tok} × prompt × {cfg.num_layers} layers): "
+              f"{per}; in decode {decode}")
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) The cut against the CPU.
+    cut_cfg = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    cut = build_model(cut_cfg, device=dev, dtype=torch.float32,
+                      generator=torch.Generator(dev).manual_seed(seed))
+    crng = np.random.default_rng([seed, 11, 2])
+    prompts = [crng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in (int(crng.integers(4, 24)), CUT_LONG)]
+    with (RouterLog(cut.rc.moe_capacity, logits=True) if moe
+          else nullcontext()) as log:
+        rec["cpu_check"] = check_cut_against_cpu(
+            cut, prompts, CUT_LONG + CUT_DECODE + 1, CUT_TOL[arch], log)
+    del cut
+    torch.cuda.empty_cache()
+
+    # (c) B4 at the longest prefill the path gave it.
+    s_max = len(longest.prompt)
+    row = abench.run((1, cfg.num_heads, cfg.num_kv_heads, s_max, s_max,
+                      cfg.head_dim, True, "float32"), rng)
+    print_b4_row(row)
+    regs = _b4_ptxas(ptxas, cfg.head_dim)
+    if regs is not None:
+        print(f"      {regs['function']}: {regs['registers']} registers, "
+              f"stack / spill store / spill load {regs['stack']} / "
+              f"{regs['spill_stores']} / {regs['spill_loads']} B")
+    kernel = {
+        "name": "flash_attention", "route": "cuda", "source": B4_SOURCE,
+        "replaces": B4_REPLACES,
+        "launches": rec["launches"]["flash_attention"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": row["shape"], "call_ms": row["call_ms"],
+        "bounds": row["bounds"],
+        "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, {arch} "
+                   f"prefill ({cfg.num_heads}/{cfg.num_kv_heads} heads)",
+        "ptxas": regs}
+    return rec, kernel
+
+
+def lm_configs_phase(dev, card, seed, abench, rng, ptxas):
+    """Phase 11: every architecture of :data:`LM_ARCHS` in turn, each
+    freed before the next is drawn."""
+    t0 = time.perf_counter()
+    out = {"configs": {}, "kernels": []}
+    for arch in LM_ARCHS:
+        rec, kernel = lm_config_phase(arch, dev, card, seed, abench, rng,
+                                      ptxas)
+        out["configs"][arch] = rec
+        out["kernels"].append(kernel)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  (11) {out['phase_s']:.1f} s in all  [{card}]")
+    return out
+
+
 # The paper's algorithms (phase 7): pivot_phased on random λ-arboric
 # graphs (n, λ), as a caller of single requests sends them; lam=None above
 # the 200,000-vertex cut of the exact degeneracy; forests; disjoint cliques
@@ -3062,12 +3377,14 @@ def main() -> int:
         "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, "
                    f"mma.sync 3xTF32",
         **{k: row[k] for k in ("ab_ms", "baseline_ms") if k in row}})
-    # B4's instances at head dims 80 and 160: no ported model runs them
-    # yet (ROADMAP A18), so each row carries its own instance's launches
-    # on the LM path, which are 0.
+    # B4's instances at head dims 80 and 160 that no ported model runs
+    # (ROADMAP A18c): each row carries its own instance's launches on the
+    # LM path, which are 0. The f32 instance at 160 is on stablelm-12b's
+    # path, and phase 11 gives its row at that path's shape.
     b4_inst = serve_rec["b4_instance_launches"]
     for row in record["b4_shapes"]:
-        if row["shape"][5] in (80, 160):
+        if row["shape"][5] in (80, 160) and \
+                (row["shape"][5], row["shape"][7]) != (160, "float32"):
             dtype = row["shape"][7]
             kernels.append({
                 "name": "flash_attention", "route": "cuda",
@@ -3130,6 +3447,12 @@ def main() -> int:
                 {k: r[k] for k in ("shape", "variant", "equal_on", "ms",
                                    "plain_ms", "bound_ms", "bound_by")}
                 for r in train_rec["b3_dedup_rows"]]
+    # 11. The other dense configs and MoE at full width; each B4 row with
+    # its launches on that config's path.
+    lm = lm_configs_phase(dev, card, args.seed, abench, rng,
+                          record["ptxas"].get("flash_attention", []))
+    record["lm_configs"] = lm
+    kernels.extend(lm["kernels"])
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -3137,7 +3460,13 @@ def main() -> int:
         args.out.write_text(json.dumps(record, indent=1, default=lambda o:
                                        o.item()))
 
-    # 11. Summary.
+    # 12. Summary.
+    print(json.dumps({"lm_configs": {
+        arch: {k: rec[k] for k in (
+            "build_s", "weight_bytes", "peak_bytes", "wall_s",
+            "prefill_tokens_per_s", "decode_tokens_per_s", "prefills",
+            "decode_steps", "launches", "dropped_per_prefill")
+            if k in rec} for arch, rec in lm["configs"].items()}}))
     print(json.dumps({"training": {
         k: train_rec[k] for k in (
             "wall_s", "median_step_ms", "tokens_per_s", "peak_bytes",

@@ -1,13 +1,15 @@
 """Serving driver: continuous batching over prefill/decode.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         [--smoke] [--device cpu] --requests 6 --max-new 12
 
 The port of ``repro/launch/serve.py``: the same request distribution from
 ``np.random.default_rng(seed)`` (prompts of 4–23 tokens, 2 to
 ``max_new - 1`` new tokens each), f32 weights drawn from a
-``torch.Generator`` seeded with ``seed``. On the card every prefill runs
-kernel B4 once per layer.
+``torch.Generator`` on the serving device seeded with ``seed`` (so a
+full-width model is drawn on the card, not the host). ``--arch`` is any
+registered architecture (``repro_torch.configs.ARCH_NAMES``: the dense
+and MoE ones). On the card every prefill runs kernel B4 once per layer.
 """
 
 from __future__ import annotations
@@ -17,18 +19,19 @@ import argparse
 import numpy as np
 import torch
 
-from ..configs import get_config, get_smoke
+from ..configs import ARCH_NAMES, get_config, get_smoke
 from ..models import build_model
 from ..serve.batching import ContinuousBatcher, Request
-from ..util import DeviceLike
+from ..util import DeviceLike, resolve_device
 
 
 def run(arch: str, smoke: bool, n_requests: int, max_new: int,
         max_slots: int = 4, cache_len: int = 160, seed: int = 0,
         device: DeviceLike = None):
     cfg = get_smoke(arch) if smoke else get_config(arch)
-    model = build_model(cfg, device=device, dtype=torch.float32,
-                        generator=torch.Generator().manual_seed(seed))
+    dev = resolve_device(device)
+    model = build_model(cfg, device=dev, dtype=torch.float32,
+                        generator=torch.Generator(dev).manual_seed(seed))
 
     rng = np.random.default_rng(seed)
     batcher = ContinuousBatcher(model, max_slots=max_slots,
@@ -54,7 +57,7 @@ def run(arch: str, smoke: bool, n_requests: int, max_new: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=12)

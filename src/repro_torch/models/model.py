@@ -20,7 +20,8 @@ from .transformer import RunConfig
 
 
 class Model(transformer.Transformer):
-    """A dense model's weights, its ``RunConfig`` and its entry points."""
+    """A dense or MoE model's weights, its ``RunConfig`` and its entry
+    points."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device,
@@ -39,11 +40,12 @@ class Model(transformer.Transformer):
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
                 cache_dtype: torch.dtype = torch.bfloat16):
         return decoding.prefill(self, self.cfg, tokens, cache_len=cache_len,
-                                cache_dtype=cache_dtype)
+                                cache_dtype=cache_dtype, rc=self.rc)
 
     def decode_step(self, token: torch.Tensor,
                     caches: Dict[str, torch.Tensor], pos: int):
-        return decoding.decode_step(self, self.cfg, token, caches, pos)
+        return decoding.decode_step(self, self.cfg, token, caches, pos,
+                                    rc=self.rc)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,

@@ -1,16 +1,18 @@
-"""Dense-family model assembly: weights, blocks, forward, head, loss.
+"""Dense and MoE model assembly: weights, blocks, forward, head, loss.
 
-The port of ``repro/models/transformer.py``'s dense family. The reference
-stacks each weight over a leading layer axis and scans it; here every
-layer is a :class:`Block` module in a ``ModuleList`` and the loop is a
-Python loop, which eager PyTorch runs without compiling. ``RunConfig``
-keeps every field of the reference's; the dense family reads
-``attn_impl``, ``remat`` and ``loss_chunk``, and a non-default value of a
-field only other families read is refused (:meth:`RunConfig.check`).
-The loss avoids materialising (B, S, V) logits by taking the vocabulary
-projection and the softmax cross-entropy a sequence chunk at a time,
-each chunk checkpointed. Other families raise ``NotImplementedError``
-(ROADMAP A18).
+The port of ``repro/models/transformer.py``'s dense and moe families,
+which share one block: attention, then a SwiGLU (``mlp``) or, where the
+config has experts, a mixture of experts (``moe``). The reference stacks
+each weight over a leading layer axis and scans it; here every layer is a
+:class:`Block` module in a ``ModuleList`` and the loop is a Python loop,
+which eager PyTorch runs without compiling. ``RunConfig`` keeps every
+field of the reference's; both families read ``attn_impl``, ``remat`` and
+``loss_chunk``, the moe family also ``moe_impl``, ``moe_capacity`` and
+``moe_token_chunk``, and a non-default value of a field the family does
+not read is refused (:meth:`RunConfig.check`). The loss avoids
+materialising (B, S, V) logits by taking the vocabulary projection and the
+softmax cross-entropy a sequence chunk at a time, each chunk
+checkpointed. Other families raise ``NotImplementedError`` (ROADMAP A18c).
 """
 
 from __future__ import annotations
@@ -26,14 +28,14 @@ from ..configs.base import ModelConfig, check_family
 from ..kernels.ref import NEG_INF
 from .attention import Attention, attention
 from .common import dense_init, rms_norm, weight
-from .mlp import MLP, mlp
+from .mlp import MLP, MoE, mlp, moe
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Per-run execution knobs, the reference's fields and defaults."""
     attn_impl: str = "chunked"       # chunked | pallas | naive
-    moe_impl: str = "sort"           # sort | einsum
+    moe_impl: str = "sort"           # sort | einsum | ep_local (= sort)
     moe_capacity: float = 1.25       # capacity factor (tokens may drop)
     moe_token_chunk: int = 8192      # dispatch chunk (bounds (T·k,d) buffers)
     remat: bool = False
@@ -45,19 +47,26 @@ class RunConfig:
     # Fields the dense family never reads: MoE, RWKV, SSD and the mesh.
     OTHER_FAMILIES = ("moe_impl", "moe_capacity", "moe_token_chunk",
                       "rwkv_impl", "ssd_chunk", "mesh")
+    # Of those, the fields the moe family reads.
+    MOE_FIELDS = ("moe_impl", "moe_capacity", "moe_token_chunk")
 
     def check(self, family: str) -> None:
-        """Raise on a field of an unported family set away from its default
-        for ``family`` (only dense runs). :func:`attention` checks
-        ``attn_impl``."""
+        """Raise on a field that ``family`` does not read set away from its
+        default: the MoE fields outside the moe family, and always
+        ``rwkv_impl``, ``ssd_chunk`` (families not ported yet) and
+        ``mesh`` (sharding). :func:`attention` checks ``attn_impl`` and
+        :func:`moe` ``moe_impl``."""
         check_family(family)
         default = RunConfig()
-        changed = [f for f in self.OTHER_FAMILIES
-                   if getattr(self, f) != getattr(default, f)]
+        read = self.MOE_FIELDS if family == "moe" else ()
+        changed = [f for f in self.OTHER_FAMILIES if f not in read
+                   and getattr(self, f) != getattr(default, f)]
         if changed:
-            raise ValueError(f"RunConfig fields {changed} belong to model "
-                             f"families not ported yet (ROADMAP A18); the "
-                             f"{family} family keeps their defaults")
+            raise ValueError(f"RunConfig fields {changed} are not read by the "
+                             f"{family} family, which keeps their defaults "
+                             f"(the MoE fields are the moe family's; "
+                             f"rwkv_impl and ssd_chunk wait for ROADMAP A18c, "
+                             f"mesh for A18d)")
 
 
 def _norm(cfg: ModelConfig, dtype, device) -> nn.Parameter:
@@ -65,18 +74,23 @@ def _norm(cfg: ModelConfig, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """Weights of one dense block: ln1, attention, ln2, SwiGLU."""
+    """Weights of one block: ln1, attention, ln2, and a SwiGLU ``mlp`` or,
+    where the config has experts, a mixture of experts ``moe`` (the
+    reference's rule and leaf names)."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
         self.ln1 = _norm(cfg, dtype, device)
         self.attn = Attention(cfg, generator, dtype, device)
         self.ln2 = _norm(cfg, dtype, device)
-        self.mlp = MLP(cfg, generator, dtype, device)
+        if cfg.num_experts:
+            self.moe = MoE(cfg, generator, dtype, device)
+        else:
+            self.mlp = MLP(cfg, generator, dtype, device)
 
 
 class Transformer(nn.Module):
-    """All weights of a dense model, initialised from ``generator``.
+    """All weights of a dense or MoE model, initialised from ``generator``.
 
     ``embed`` (Vpad, d), ``ln_f`` (d,), ``lm_head`` (d, Vpad) unless the
     embeddings are tied, and ``blocks``, one :class:`Block` per layer.
@@ -103,11 +117,22 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
+def ffn(p: Block, cfg: ModelConfig, rc: RunConfig,
+        z: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward on the normed z (B, S, D): the experts
+    with ``rc``'s MoE fields where the config has them, else the SwiGLU."""
+    if cfg.num_experts:
+        return moe(p.moe, z, cfg, impl=rc.moe_impl,
+                   capacity_factor=rc.moe_capacity,
+                   token_chunk=rc.moe_token_chunk)
+    return mlp(p.mlp, z)
+
+
 def _dense_block(p: Block, cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
                       positions, impl=rc.attn_impl).out
-    return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+    return x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
 
 
 def _maybe_remat(fn: Callable, rc: RunConfig) -> Callable:
@@ -189,5 +214,5 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
                                  chunk=rc.loss_chunk)
 
 
-__all__ = ["Block", "Transformer", "RunConfig", "forward", "lm_head",
+__all__ = ["Block", "Transformer", "RunConfig", "ffn", "forward", "lm_head",
            "chunked_cross_entropy", "loss_fn"]

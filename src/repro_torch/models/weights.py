@@ -7,7 +7,10 @@ H·hd)``); the port keeps one module per layer. A port parameter named
 ``blocks/<path>``; every other name is the leaf of the same path. Both
 sides use the ``x @ W`` orientation ``(d_in, d_out)``, so nothing is
 transposed, and a tied model has no ``lm_head`` leaf on either side (the
-head is ``embed.T``).
+head is ``embed.T``). An MoE block's leaves are ``blocks/moe/router``
+(``(L, d, E)``, f32 whatever the model's dtype, as in the reference) and
+``blocks/moe/{wi,wg,wo}`` (``(L, E, d, ff)``, ``(L, E, ff, d)``) where a
+dense block has ``blocks/mlp``.
 
 The tree is given as numpy arrays (``np.asarray`` of each jax leaf), so
 this module needs neither jax nor the reference package.

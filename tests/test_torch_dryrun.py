@@ -226,7 +226,7 @@ def test_run_config_keeps_the_reference_fields_and_refuses_other_families():
         model.loss({"tokens": torch.zeros((1, 4), dtype=torch.int32),
                     "labels": torch.zeros((1, 4), dtype=torch.int32)})
     with pytest.raises(NotImplementedError, match="A18"):
-        RunConfig().check("moe")
+        RunConfig().check("ssm")
 
 
 # ---------------------------------------------------------------------------

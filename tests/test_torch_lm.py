@@ -10,7 +10,11 @@ Tolerances, with their reasons:
 
 * prefill logits 1e-4: two f32 layers of the smoke model, every sum in
   another order, on logits of order 1;
-* caches equal: the same f32 keys and values rounded to bf16 once;
+* caches equal: the same f32 keys and values rounded to bf16 once; for a
+  mixture of experts, equal in the first layer and within one bf16 unit
+  after it, since an MoE layer's output, summed in another order than
+  XLA's, moves a later layer's f32 keys by rounding, which can carry one
+  of them across a bf16 rounding boundary;
 * decode logits 1e-3: the decode path multiplies bf16 operands widened to
   f32 (exact) and sums them in f32 in another order than XLA;
 * greedy tokens equal wherever the reference's top-2 margin exceeds twice
@@ -47,17 +51,24 @@ PREFILL_TOL = 1e-4
 DECODE_TOL = 1e-3
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = ref_get_smoke("smollm-135m")
+def reference_pair(arch):
+    """The reference's smoke model of ``arch`` (Pallas B4 in interpret
+    mode, f32 weights from ``jax.random``), its params, and the port's
+    model holding the same weights on the CPU."""
+    jcfg = ref_get_smoke(arch)
     jmodel = ref_build_model(jcfg, plan=ShardingPlan.null(),
                              rc=RunConfig(attn_impl="pallas"),
                              param_dtype=jnp.float32)
     params, _ = jmodel.init(jax.random.PRNGKey(0))
-    model = from_reference_params(get_smoke("smollm-135m"),
+    model = from_reference_params(get_smoke(arch),
                                   jax.tree.map(np.asarray, params),
                                   device="cpu")
     return jmodel, params, model
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return reference_pair("smollm-135m")
 
 
 def _close(got, want, tol):
@@ -67,15 +78,22 @@ def _close(got, want, tol):
 
 
 def test_forward_prefill_and_teacher_forced_decode_match_reference(pair):
-    jmodel, params, model = pair
+    check_prefill_and_decode(*pair)
+
+
+def check_prefill_and_decode(jmodel, params, model):
+    """Forward, prefill logits and caches, then three teacher-forced decode
+    steps, on two prompts of 11 tokens."""
+    vocab = model.cfg.vocab_size
     rng = np.random.default_rng(0)
-    prompt = rng.integers(2, 512, (2, 11)).astype(np.int32)
-    forced = rng.integers(2, 512, (3, 2)).astype(np.int32)
+    prompt = rng.integers(2, vocab, (2, 11)).astype(np.int32)
+    forced = rng.integers(2, vocab, (3, 2)).astype(np.int32)
     want, jcaches = jmodel.prefill(params, {"tokens": jnp.asarray(prompt)},
                                    cache_len=16)
     got, caches = model.prefill(torch.from_numpy(prompt).long(),
                                 cache_len=16)
-    assert got.dtype == torch.float32 and got.shape == (2, 512)
+    assert got.dtype == torch.float32 and got.shape == (
+        2, model.cfg.padded_vocab)
     _close(got.numpy(), want, PREFILL_TOL)
     _close(model(torch.from_numpy(prompt).long()).numpy(),
            jmodel.forward(params, {"tokens": jnp.asarray(prompt)}),
@@ -83,9 +101,7 @@ def test_forward_prefill_and_teacher_forced_decode_match_reference(pair):
     for name in ("k", "v"):
         assert caches[name].dtype == torch.bfloat16
         assert caches[name].shape == tuple(jcaches[name].shape)
-        np.testing.assert_array_equal(
-            caches[name].float().numpy(),
-            np.asarray(jcaches[name].astype(jnp.float32)))
+    _caches_match(caches, jcaches, model.cfg)
     for step, tok in enumerate(forced):
         pos = 11 + step
         want, jcaches = jmodel.decode_step(params, jnp.asarray(tok), jcaches,
@@ -93,10 +109,22 @@ def test_forward_prefill_and_teacher_forced_decode_match_reference(pair):
         got, caches = model.decode_step(torch.from_numpy(tok).long(), caches,
                                         pos)
         _close(got.numpy(), want, DECODE_TOL)
+    _caches_match(caches, jcaches, model.cfg)
+
+
+def _caches_match(caches, jcaches, cfg):
+    """The bf16 caches equal, or for an MoE model equal in layer 0 and at
+    most one bf16 unit apart after it (adjacent bit patterns, same sign)."""
     for name in ("k", "v"):
-        np.testing.assert_array_equal(
-            caches[name].float().numpy(),
-            np.asarray(jcaches[name].astype(jnp.float32)))
+        got = caches[name].float().numpy()
+        want = np.asarray(jcaches[name].astype(jnp.float32))
+        if not cfg.num_experts:
+            np.testing.assert_array_equal(got, want)
+            continue
+        np.testing.assert_array_equal(got[0], want[0])
+        bits = caches[name].view(torch.int16).numpy().astype(np.int32)
+        ref_bits = np.asarray(jcaches[name]).view(np.int16).astype(np.int32)
+        assert np.abs(bits - ref_bits).max() <= 1, name
 
 
 class _RefRecorder:
@@ -146,12 +174,16 @@ class _PortRecorder(_RefRecorder):
 
 
 def test_continuous_batcher_serves_like_reference(pair):
+    check_batcher(*pair)
+
+
+def check_batcher(jmodel, params, model):
     """Four requests through two slots on both sides: same schedule, same
     tokens where the margin allows, logits within tolerance."""
-    jmodel, params, model = pair
+    vocab = model.cfg.vocab_size
     rng = np.random.default_rng(1)
     specs = [(int(n), int(m)) for n, m in ((5, 4), (9, 3), (14, 5), (9, 2))]
-    prompts = [rng.integers(2, 512, n).astype(np.int32) for n, _ in specs]
+    prompts = [rng.integers(2, vocab, n).astype(np.int32) for n, _ in specs]
     uid_of = {p.tobytes(): i for i, p in enumerate(prompts)}
     ref_side = _RefRecorder(jmodel, uid_of)
     port_side = _PortRecorder(model, uid_of)
@@ -175,7 +207,7 @@ def test_continuous_batcher_serves_like_reference(pair):
         for t, (want, got) in enumerate(zip(ref_side.logits[rr.uid],
                                             port_side.logits[pr.uid])):
             np.testing.assert_allclose(got, want, rtol=0, atol=DECODE_TOL)
-            top2 = np.sort(want[:512])[-2:]
+            top2 = np.sort(want[:vocab])[-2:]
             if top2[1] - top2[0] <= 2 * DECODE_TOL:
                 diverged = True
                 break
@@ -224,7 +256,7 @@ def test_configs_match_reference_and_refuse_unported():
         assert port.padded_vocab == ref.padded_vocab
         assert port.param_count() == ref.param_count()
     with pytest.raises(NotImplementedError, match="A18"):
-        get_config("olmoe-1b-7b")
+        get_config("whisper-base")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
