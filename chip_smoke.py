@@ -181,15 +181,47 @@ Phases, in order; any failure raises and exits non-zero:
    clear; (c) B4 at the config's longest served prefill against its plain
    version, timed with its bound, SDPA's time and ptxas's registers and
    spills of that instance;
-12. summary: an ``lm_configs``, a ``training`` and a ``tuning`` JSON line,
-   the card line, a ``kernels`` JSON line
+12. the other model families (``repro_torch.configs``), each at its
+   published widths with f32 weights drawn on the card from ``--seed`` and
+   freed before the next: (a) rwkv6-1.6b (24 layers, attention-free, the
+   exact RWKV scan in prefill as the serving launcher sets it) and
+   zamba2-2.7b (54 Mamba2 layers, the shared attention block after every
+   6, SSD chunks of 16) through ``ContinuousBatcher`` and ``serve_all``
+   with phase 6's request recipe from ``[seed, 12]``, counts zeroed just
+   before and read just after: every request served, B4 launched 0 times
+   (rwkv6) or 9 times a prefill at (f32, 80) and at no other instance
+   (zamba2); build seconds, weight bytes, peak memory, prefill and decode
+   tokens/s, the wall; (b) whisper-base (6 + 6 layers, 1,500 frames) and
+   (c) llama-3.2-vision-90b cut to 10 layers (2 groups; 337.84 GiB at full
+   depth), whose prefill reads stub embeddings the batcher does not
+   carry: the same 8 prompts through ``Model.prefill`` with
+   ``audio_embeds`` (1, 1,500, 512) or ``image_embeds`` (1, 1,024, 8,192)
+   drawn from the seed, then greedy ``decode_step`` s under the batcher's
+   stop rules; B4 18 times a prefill at (f32, 64) (6 causal, 12
+   non-causal) and 10 at (f32, 128) (8 causal, 2 non-causal); (d) each
+   family's cut (rwkv6 2 layers, zamba2 6, whisper whole, the VLM 5),
+   drawn on the card with the constant-initialised leaves (gates, ``u``,
+   ``w0``, ``A_log``, ``dt_bias``) drawn from the seed, against its copy
+   on the CPU: a short prompt and one of 512 tokens (128 for the VLM), 8
+   teacher-forced decode steps each, prefill logits within 1e-3 and
+   decode logits within 5e-2, greedy tokens equal where the CPU's top-2
+   margin exceeds twice the tolerance; (e) B4 at each new instance's
+   longest served prefill (zamba2 causal D = 80; whisper's encoder and
+   cross-attention, non-causal with Sq != Sk; the VLM's self and cross
+   layers) against its plain version, timed with its bound, SDPA's time
+   and ptxas's registers and spills; (f) ``rwkv_chunked`` against
+   ``rwkv_scan`` on rwkv6's first layer at its longest served prompt: the
+   largest difference and each one's wall;
+13. summary: a ``families``, an ``lm_configs``, a ``training`` and a
+   ``tuning`` JSON line, the card line, a ``kernels`` JSON line
    (B1, B2, B3 as the fused kernel and as the window mode, B4, the
    agreement kernel with its route, replicas and both bounds; B1 also on
    the agreement graphs, B4 also at head dims 80 and 160 off the path and
    at each phase-11 config's longest prefill with its launches there; B1's
    and B2's main-path rows also with their launches on the dedup path and
    the tuned winner beside the default; B3's with its launches and its
-   check in the training launcher's dedup stage), and last
+   check in the training launcher's dedup stage; B4 also at each phase-12
+   instance with its launches there), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -462,9 +494,12 @@ class AttentionBench:
             row["plain_call_ms"] = time_ms(plain, calls=3)
             row["ms"] = device_ms(kernel)
             row["plain_ms"] = device_ms(plain, calls=3)
-            # The library yardstick where the shape is one self-attention
-            # call (Sq = Sk); never called by the port.
-            row["library_ms"] = device_ms(library) if Sq == Sk else None
+            # The library yardstick where SDPA computes the same function:
+            # Sq = Sk, or no mask (cross-attention); its causal mask with
+            # Sq != Sk is aligned top-left, B4's bottom-right. Never called
+            # by the port.
+            row["library_ms"] = device_ms(library) if Sq == Sk or not \
+                causal else None
         if ab and self.baseline is not None:
             def old():
                 return self.baseline(q, k, v, causal=causal)
@@ -1530,8 +1565,9 @@ class TimedModel:
         sync(self.device)
         return out, time.perf_counter() - t0
 
-    def prefill(self, tokens, cache_len):
-        out, sec = self._timed(self.model.prefill, tokens, cache_len=cache_len)
+    def prefill(self, tokens, cache_len, **stubs):
+        out, sec = self._timed(self.model.prefill, tokens, cache_len=cache_len,
+                               **stubs)
         self.prefill_calls.append((tokens.numel(), sec))
         self.prefill_s += sec
         self.prefill_tokens += tokens.numel()
@@ -1544,7 +1580,7 @@ class TimedModel:
         return out
 
 
-def serving_path(model, requests, cache_len, card, slots=4):
+def serving_path(model, requests, cache_len, card, slots=4, label="(e)"):
     """Serve ``requests`` through ``ContinuousBatcher`` and ``serve_all``
     with every launch count zeroed just before and read just after."""
     from repro_torch.kernels import flash_attention as fa
@@ -1565,8 +1601,8 @@ def serving_path(model, requests, cache_len, card, slots=4):
     st = batcher.stats
     if sorted(r.uid for r in retired) != [r.uid for r in requests] or not \
             all(r.done and r.out_tokens for r in requests):
-        raise AssertionError("(e) not every request was served")
-    want = model.cfg.num_layers * st.prefills
+        raise AssertionError(f"{label} not every request was served")
+    want = sum(b4_per_prefill(model.cfg).values()) * st.prefills
     if model.device.type == "cuda" and launches["flash_attention"] != want:
         raise AssertionError(f"(e) B4 launched {launches['flash_attention']}"
                              f" times for {st.prefills} prefills, not {want}")
@@ -1584,10 +1620,9 @@ def serving_path(model, requests, cache_len, card, slots=4):
         "prefills": st.prefills, "decode_steps": st.decode_steps,
         "emitted_tokens": st.emitted_tokens,
         "wasted_slot_steps": st.wasted_slot_steps, "launches": launches,
-        # B4's launches by (dtype, head dim) instance, for the kernels line.
-        "b4_instance_launches": {f"{d}/{h}": n for (d, h), n in
-                                 fa.instance_launches.items()}}
-    print(f"  (e) {len(requests)} requests served in {wall:.3f} s wall: "
+        # B4's launches by instance and mask, for the kernels line.
+        "b4_instance_launches": b4_instance_launches(fa)}
+    print(f"  {label} {len(requests)} requests served in {wall:.3f} s wall: "
           f"prefill {timed.prefill_tokens} tokens in {timed.prefill_s:.3f} s"
           f" = {record['prefill_tokens_per_s']:.1f} tokens/s; decode "
           f"{timed.decode_tokens} tokens in {timed.decode_s:.3f} s = "
@@ -1595,6 +1630,36 @@ def serving_path(model, requests, cache_len, card, slots=4):
     print(f"      prefills {st.prefills}, decode steps {st.decode_steps}, "
           f"wasted slot-steps {st.wasted_slot_steps}; launches {launches}")
     return record
+
+
+def b4_key(dtype, head_dim, causal=True) -> str:
+    """An instance key of B4's launch counts as the records print it:
+    ``float32/64`` (causal) or ``float32/64/non-causal``."""
+    return f"{dtype}/{head_dim}" + ("" if causal else "/non-causal")
+
+
+def b4_instance_launches(fa) -> dict:
+    return {b4_key(*key): n for key, n in fa.instance_launches.items()}
+
+
+def b4_per_prefill(cfg, dtype="float32") -> dict:
+    """B4's launches in one prefill of ``cfg``, by instance key: one a
+    self-attention layer (causal), one an encoder layer and one a
+    cross-attention layer (non-causal); the hybrid's shared block once a
+    group, none for RWKV."""
+    causal, cross = b4_key(dtype, cfg.head_dim), b4_key(dtype, cfg.head_dim,
+                                                       False)
+    if cfg.family in ("dense", "moe"):
+        return {causal: cfg.num_layers}
+    if cfg.family == "ssm":
+        return {}
+    if cfg.family == "hybrid":
+        return {causal: cfg.num_layers // cfg.attn_every}
+    if cfg.family == "encdec":
+        return {causal: cfg.num_layers,
+                cross: cfg.encoder_layers + cfg.num_layers}
+    groups = cfg.num_layers // cfg.cross_attn_every
+    return {causal: groups * (cfg.cross_attn_every - 1), cross: groups}
 
 
 def _margin(logits, vocab):
@@ -1864,18 +1929,22 @@ def _routing_agrees(cpu_calls, card_calls, k, row, tol):
     return True
 
 
-def check_cut_against_cpu(cut, prompts, cache_len, tol, log=None):
+def check_cut_against_cpu(cut, prompts, cache_len, tol, log=None,
+                          stubs=None, label=None):
     """(b) The cut on the card against its copy on the CPU: per prompt the
     prefill logits and CUT_DECODE teacher-forced decode steps (the CPU's
     greedy token fed to both) within ``tol``, greedy tokens equal where the
     CPU's top-2 margin exceeds twice the tolerance; with ``log`` (an MoE),
     the routing of every forward (:func:`_routing_agrees`). Where the
     experts differ at an unclear decision the prompt's comparison ends
-    there, and the row says so."""
+    there, and the row says so. ``stubs`` (CPU tensors by batch key) go
+    to both prefills; the CPU copy runs with the cut's ``RunConfig``."""
     from repro_torch.models import build_model
 
     dev, cfg, vocab = cut.device, cut.cfg, cut.cfg.vocab_size
-    cpu = build_model(cfg, device="meta").to_empty(device="cpu")
+    stubs = stubs or {}
+    card_stubs = {k: v.to(dev) for k, v in stubs.items()}
+    cpu = build_model(cfg, device="meta", rc=cut.rc).to_empty(device="cpu")
     cpu.load_state_dict(cut.state_dict())
     rows = []
     for prompt in prompts:
@@ -1887,9 +1956,10 @@ def check_cut_against_cpu(cut, prompts, cache_len, tol, log=None):
         tok = cc = cg = None
         for step in range(CUT_DECODE + 1):
             if step == 0:
-                lc, cc = cpu.prefill(tokens, cache_len=cache_len)
+                lc, cc = cpu.prefill(tokens, cache_len=cache_len, **stubs)
                 cpu_calls = log.take() if log else []
-                lg, cg = cut.prefill(tokens.to(dev), cache_len=cache_len)
+                lg, cg = cut.prefill(tokens.to(dev), cache_len=cache_len,
+                                     **card_stubs)
             else:
                 pos, t = len(prompt) + step - 1, torch.tensor([tok])
                 lc, cc = cpu.decode_step(t, cc, pos)
@@ -1914,7 +1984,8 @@ def check_cut_against_cpu(cut, prompts, cache_len, tol, log=None):
                                      f"step {step}: greedy token differs")
             row["errs"].append(err)
             row["margins"].append(margin)
-        print(f"  (b) {cfg.name}, {CUT_LAYERS} layers, prompt {len(prompt)}:"
+        print(f"  {label or '(b)'} {cfg.name}, {cfg.num_layers} layers, "
+              f"prompt {len(prompt)}:"
               f" prefill logits {row['errs'][0]:.3g} apart (tol "
               f"{tol['prefill']}), decode max "
               f"{max(row['errs'][1:], default=0.0):.3g} (tol "
@@ -2048,6 +2119,323 @@ def lm_configs_phase(dev, card, seed, abench, rng, ptxas):
         out["kernels"].append(kernel)
     out["phase_s"] = time.perf_counter() - t0
     print(f"  (11) {out['phase_s']:.1f} s in all  [{card}]")
+    return out
+
+
+# Phase 12: the other model families at their published widths, f32
+# weights drawn on the card from --seed, each freed before the next.
+# rwkv6-1.6b and zamba2-2.7b serve through ContinuousBatcher with the
+# serving launcher's run settings; whisper-base and the VLM read stub
+# embeddings the batcher does not carry, so their requests go through
+# Model.prefill with the embeddings (drawn from the seed, not zeros: zero
+# frames would make every cross K/V zero) and greedy decode_step.
+FAMILY_SERVED = ("rwkv6-1.6b", "zamba2-2.7b")
+FAMILY_DIRECT = ("whisper-base", "llama-3.2-vision-90b")
+# llama-3.2-vision-90b at full depth holds 337.84 GiB of f32 weights (the
+# reference's param_count); at its published widths cut to 10 layers (2
+# groups of 4 self layers and a cross layer) it holds 39.7 GiB.
+VLM_SERVED_LAYERS = 10
+# The CPU comparison (d): each family's cut, drawn on the card and copied
+# to the host (None: the whole model), and its long prompt.
+FAMILY_CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-2.7b": 6, "whisper-base": None,
+                     "llama-3.2-vision-90b": 5}
+FAMILY_CUT_LONG = {"llama-3.2-vision-90b": 128}
+# Phase 11's tolerances and reasoning (CUT_TOL): prefill logits f32 summed
+# in another order, decode logits through bf16 carries (keys and values,
+# Mamba conv states, RWKV token shifts), where one value rounded to the
+# other side of a bf16 unit moves a logit by ~1e-2.
+FAMILY_TOL = {"prefill": 1e-3, "decode": 5e-2}
+EOS = 1
+
+
+def stub_inputs(cfg, rng, dev) -> dict:
+    """The stub embeddings ``cfg``'s family reads, (1, n, d) standard
+    normal f32 from ``rng``, by batch key."""
+    from repro_torch.models.transformer import STUB_INPUTS
+
+    key = STUB_INPUTS.get(cfg.family)
+    if key is None:
+        return {}
+    n = cfg.encoder_seq if key == "audio_embeds" else cfg.num_image_tokens
+    return {key: torch.from_numpy(rng.standard_normal(
+        (1, n, cfg.d_model), np.float32)).to(dev)}
+
+
+def move_constants(model, seed):
+    """Draws the leaves that start at constants (the cross-attention
+    ``gate``, RWKV's ``u`` and ``w0``, Mamba's ``A_log`` and ``dt_bias``)
+    from ``seed``, as the CPU tests do, so the cross path, the bonus term
+    and the decays move the logits the comparison reads."""
+    gen = torch.Generator(model.device).manual_seed(seed)
+    draws = {"gate": (0.3, 1.2), "w0": (-3.0, -0.5), "A_log": (-1.0, 1.0),
+             "dt_bias": (-1.0, 1.0)}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in draws:
+                lo, hi = draws[leaf]
+                p.uniform_(lo, hi, generator=gen)
+            elif leaf == "u":
+                p.normal_(0.0, 0.5, generator=gen)
+
+
+def direct_path(model, requests, cache_len, card, stubs, label):
+    """(b), (c): each request through ``Model.prefill`` with its stub
+    embeddings, then greedy ``decode_step`` under the batcher's stop rules
+    (max new tokens, EOS, the cache's end), every launch count zeroed just
+    before and read just after."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import neighbor_min as nm
+
+    dev, vocab = model.device, model.cfg.vocab_size
+    timed = TimedModel(model)
+    nm.reset_launch_counts()
+    fa.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    steps = 0
+    for req, stub in zip(requests, stubs):
+        tokens = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
+                                 device=dev)
+        logits, caches = timed.prefill(tokens, cache_len, **stub)
+        out, pos = [int(logits[0, :vocab].argmax())], len(req.prompt)
+        while len(out) < req.max_new_tokens and out[-1] != EOS \
+                and pos < cache_len - 1:
+            logits, caches = timed.decode_step(
+                torch.tensor([out[-1]], device=dev), caches, pos)
+            out.append(int(logits[0, :vocab].argmax()))
+            pos, steps = pos + 1, steps + 1
+        req.out_tokens, req.done = out, True
+        del caches
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {**nm.launches, **fa.launches}
+    record = {
+        "requests": len(requests), "cache_len": cache_len,
+        "prompt_lengths": [len(r.prompt) for r in requests],
+        "new_tokens": [len(r.out_tokens) for r in requests],
+        "wall_s": wall, "prefill_s": timed.prefill_s,
+        "decode_s": timed.decode_s, "prefill_calls": timed.prefill_calls,
+        "prefill_tokens": timed.prefill_tokens,
+        "decode_tokens": timed.decode_tokens,
+        "prefill_tokens_per_s": timed.prefill_tokens / timed.prefill_s,
+        "decode_tokens_per_s": timed.decode_tokens / max(timed.decode_s,
+                                                         1e-9),
+        "prefills": len(requests), "decode_steps": steps,
+        "emitted_tokens": sum(len(r.out_tokens) for r in requests),
+        "launches": launches,
+        "b4_instance_launches": b4_instance_launches(fa)}
+    print(f"  {label} {len(requests)} requests served in {wall:.3f} s wall:"
+          f" prefill "
+          f"{timed.prefill_tokens} tokens in {timed.prefill_s:.3f} s = "
+          f"{record['prefill_tokens_per_s']:.1f} tokens/s; decode "
+          f"{timed.decode_tokens} tokens in {timed.decode_s:.3f} s = "
+          f"{record['decode_tokens_per_s']:.1f} tokens/s  [{card}]")
+    return record
+
+
+def rwkv_evaluators(model, prompt, card):
+    """(f) ``rwkv_chunked`` against ``rwkv_scan`` on the first layer's
+    projections of ``prompt``: the largest difference of outputs and of
+    final states, and each one's wall (the second of two calls, each
+    ended by a synchronise). A measurement for the roadmap; serving keeps
+    the launcher's scan."""
+    from repro_torch.models import rwkv
+    from repro_torch.models.common import rms_norm
+
+    cfg, dev = model.cfg, model.device
+    p = model.blocks[0]
+    h, n = rwkv.rwkv_dims(cfg)
+    with torch.no_grad():
+        x = model.embed[torch.as_tensor(prompt[None, :], dtype=torch.long,
+                                        device=dev)]
+        z = rms_norm(x, p.ln1, cfg.norm_eps)
+        r, k, v, _, logw, _ = rwkv._projections(
+            p.tm, z, torch.zeros_like(z[:, :1]))
+        t = z.shape[1]
+        args = [a.reshape(1, t, h, n) for a in (r, k, v, logw)] + [
+            p.tm.u.reshape(h, n), torch.zeros((1, h, n, n), device=dev)]
+        out, walls = {}, {}
+        for name, fn in (("scan", rwkv.rwkv_scan),
+                         ("chunked", rwkv.rwkv_chunked)):
+            for _ in range(2):
+                sync(dev)
+                t0 = time.perf_counter()
+                out[name] = fn(*args)
+                sync(dev)
+                walls[name] = time.perf_counter() - t0
+    rec = {"tokens": t,
+           "max_abs_diff_out": float((out["scan"][0] - out["chunked"][0])
+                                     .abs().max()),
+           "max_abs_diff_state": float((out["scan"][1] - out["chunked"][1])
+                                       .abs().max()),
+           "max_abs_out": float(out["scan"][0].abs().max()),
+           "scan_s": walls["scan"], "chunked_s": walls["chunked"]}
+    if not (np.isfinite(rec["max_abs_diff_out"])
+            and rec["max_abs_diff_out"] <= 1e-3 * max(1.0, rec["max_abs_out"])):
+        raise AssertionError(f"(f) rwkv_chunked and rwkv_scan differ by "
+                             f"{rec['max_abs_diff_out']}")
+    print(f"  (f) {cfg.name} layer 0, {t} tokens: rwkv_chunked against "
+          f"rwkv_scan max |diff| {rec['max_abs_diff_out']:.3g} (outputs up "
+          f"to {rec['max_abs_out']:.3g}), states {rec['max_abs_diff_state']:.3g}"
+          f"; wall scan {rec['scan_s'] * 1e3:.2f} ms, chunked "
+          f"{rec['chunked_s'] * 1e3:.2f} ms  [{card}]")
+    return rec
+
+
+def _family_cfg(arch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "llama-3.2-vision-90b":
+        cfg = dataclasses.replace(cfg, num_layers=VLM_SERVED_LAYERS)
+    return cfg
+
+
+def family_served(arch, dev, card, seed):
+    """(a)/(b)/(c) for one family: built at its published widths (the VLM
+    cut to :data:`VLM_SERVED_LAYERS`), served, B4's launches checked per
+    instance; for rwkv6 also (f). Returns the record and the longest
+    prompt."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = _family_cfg(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32,
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        rc=serve.run_config(cfg))
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"  {arch} ({cfg.family}): {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim}, vocabulary {cfg.vocab_size}, {model.rc}: "
+          f"{weight_bytes} bytes of f32 weights drawn on the card in "
+          f"{build_s:.2f} s")
+    reqs = serving_requests(np.random.default_rng([seed, 12]),
+                            cfg.vocab_size, SERVE_CACHE_LEN)
+    if arch in FAMILY_SERVED:
+        rec = serving_path(model, reqs, SERVE_CACHE_LEN, card, label="(a)")
+    else:
+        srng = np.random.default_rng([seed, 12, 1])
+        stubs = [stub_inputs(cfg, srng, dev) for _ in reqs]
+        rec = direct_path(model, reqs, SERVE_CACHE_LEN, card, stubs,
+                          "(b)" if cfg.family == "encdec" else "(c)")
+        del stubs
+    if not all(r.done and r.out_tokens for r in reqs):
+        raise AssertionError(f"{arch}: not every request was served")
+    want = {k: n * rec["prefills"] for k, n in b4_per_prefill(cfg).items()}
+    if dev.type == "cuda" and rec["b4_instance_launches"] != want:
+        raise AssertionError(f"{arch}: B4 launched "
+                             f"{rec['b4_instance_launches']}, not {want}")
+    peak = torch.cuda.max_memory_allocated()
+    rec.update(arch=arch, layers=cfg.num_layers, build_s=build_s,
+               weight_bytes=weight_bytes, peak_bytes=peak,
+               b4_per_prefill=b4_per_prefill(cfg))
+    print(f"      prefills {rec['prefills']}, decode steps "
+          f"{rec['decode_steps']}; B4 launched "
+          f"{rec['b4_instance_launches']} ({b4_per_prefill(cfg)} a prefill);"
+          f" peak {peak} bytes allocated  [{card}]")
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    if cfg.family == "ssm":
+        rec["evaluators"] = rwkv_evaluators(model, longest.prompt, card)
+    del model
+    torch.cuda.empty_cache()
+    return rec, len(longest.prompt)
+
+
+def family_against_cpu(arch, dev, seed):
+    """(d) The family's cut (:data:`FAMILY_CUT_LAYERS`) drawn on the card
+    with its constant leaves drawn from the seed, against its copy on the
+    CPU: a short prompt and a long one, each with CUT_DECODE teacher-forced
+    decode steps."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = _family_cfg(arch)
+    if FAMILY_CUT_LAYERS[arch]:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_CUT_LAYERS[arch])
+    cut = build_model(cfg, device=dev, dtype=torch.float32,
+                      generator=torch.Generator(dev).manual_seed(seed),
+                      rc=serve.run_config(cfg))
+    move_constants(cut, seed + 1)
+    crng = np.random.default_rng([seed, 12, 2])
+    long = FAMILY_CUT_LONG.get(arch, CUT_LONG)
+    prompts = [crng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in (int(crng.integers(4, 24)), long)]
+    stubs = stub_inputs(cfg, crng, torch.device("cpu"))
+    rows = check_cut_against_cpu(cut, prompts, long + CUT_DECODE + 1,
+                                 FAMILY_TOL, stubs=stubs, label="(d)")
+    del cut
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "rows": rows}
+
+
+def family_b4_rows(served, abench, rng, ptxas):
+    """(e) B4 at each new instance's longest served prefill, against its
+    plain version, timed with its bound, SDPA's time and ptxas's
+    registers and spills; the ``kernels`` rows, each with its instance's
+    launches on its family's path."""
+    from repro_torch.configs import get_config
+
+    rows = []
+    zamba, whisper = get_config("zamba2-2.7b"), get_config("whisper-base")
+    vlm = get_config("llama-3.2-vision-90b")
+    s_z, s_w, s_v = (served[a]["longest_prompt"] for a in (
+        "zamba2-2.7b", "whisper-base", "llama-3.2-vision-90b"))
+    enc = whisper.encoder_seq
+    for arch, cfg, (sq, sk), causal, what in (
+            ("zamba2-2.7b", zamba, (s_z, s_z), True, "shared attention"),
+            ("whisper-base", whisper, (enc, enc), False, "encoder"),
+            ("whisper-base", whisper, (s_w, enc), False, "cross-attention"),
+            ("llama-3.2-vision-90b", vlm, (s_v, s_v), True, "self layers"),
+            ("llama-3.2-vision-90b", vlm, (s_v, vlm.num_image_tokens), False,
+             "cross layers")):
+        shape = (1, cfg.num_heads, cfg.num_kv_heads, sq, sk, cfg.head_dim,
+                 causal, "float32")
+        row = abench.run(shape, rng)
+        print_b4_row(row)
+        regs = _b4_ptxas(ptxas, cfg.head_dim)
+        if regs is not None:
+            print(f"      {regs['function']}: {regs['registers']} registers,"
+                  f" stack / spill store / spill load {regs['stack']} / "
+                  f"{regs['spill_stores']} / {regs['spill_loads']} B")
+        key = b4_key("float32", cfg.head_dim, causal)
+        rows.append({
+            "name": "flash_attention", "route": "cuda", "source": B4_SOURCE,
+            "replaces": B4_REPLACES,
+            "launches": served[arch]["b4_instance_launches"].get(key, 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "call_ms": row["call_ms"],
+            "bounds": row["bounds"],
+            "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, "
+                       f"{'causal' if causal else 'non-causal'}, {arch} "
+                       f"{what} ({cfg.num_heads}/{cfg.num_kv_heads} heads); "
+                       f"launches: the {key} instance on its path",
+            "ptxas": regs})
+    return rows
+
+
+def families_phase(dev, card, seed, abench, rng, ptxas):
+    """Phase 12: (a)-(c) and (f) each family served, (d) each cut against
+    the CPU, (e) B4 at the new instances."""
+    t0 = time.perf_counter()
+    out = {"served": {}, "cpu_check": {}}
+    for arch in FAMILY_SERVED + FAMILY_DIRECT:
+        rec, longest = family_served(arch, dev, card, seed)
+        rec["longest_prompt"] = longest
+        out["served"][arch] = rec
+    for arch in FAMILY_SERVED + FAMILY_DIRECT:
+        out["cpu_check"][arch] = family_against_cpu(arch, dev, seed)
+    out["kernels"] = family_b4_rows(out["served"], abench, rng, ptxas)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  (12) {out['phase_s']:.1f} s in all  [{card}]")
     return out
 
 
@@ -3377,14 +3765,13 @@ def main() -> int:
         "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, "
                    f"mma.sync 3xTF32",
         **{k: row[k] for k in ("ab_ms", "baseline_ms") if k in row}})
-    # B4's instances at head dims 80 and 160 that no ported model runs
-    # (ROADMAP A18c): each row carries its own instance's launches on the
-    # LM path, which are 0. The f32 instance at 160 is on stablelm-12b's
-    # path, and phase 11 gives its row at that path's shape.
+    # B4's bf16 instances at head dims 80 and 160, which no model serves:
+    # each row carries its own instance's launches on the LM path, which
+    # are 0. The f32 instances are on stablelm-12b's path (160) and
+    # zamba2-2.7b's (80), and phases 11 and 12 give their rows there.
     b4_inst = serve_rec["b4_instance_launches"]
     for row in record["b4_shapes"]:
-        if row["shape"][5] in (80, 160) and \
-                (row["shape"][5], row["shape"][7]) != (160, "float32"):
+        if row["shape"][5] in (80, 160) and row["shape"][7] == "bfloat16":
             dtype = row["shape"][7]
             kernels.append({
                 "name": "flash_attention", "route": "cuda",
@@ -3453,6 +3840,12 @@ def main() -> int:
                           record["ptxas"].get("flash_attention", []))
     record["lm_configs"] = lm
     kernels.extend(lm["kernels"])
+    # 12. The other model families; each new B4 row with its instance's
+    # launches on that family's path.
+    fam = families_phase(dev, card, args.seed, abench, rng,
+                         record["ptxas"].get("flash_attention", []))
+    record["families"] = fam
+    kernels.extend(fam["kernels"])
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -3460,7 +3853,20 @@ def main() -> int:
         args.out.write_text(json.dumps(record, indent=1, default=lambda o:
                                        o.item()))
 
-    # 12. Summary.
+    # 13. Summary.
+    print(json.dumps({"families": {
+        arch: {**{k: rec[k] for k in (
+            "layers", "build_s", "weight_bytes", "peak_bytes", "wall_s",
+            "prefill_tokens_per_s", "decode_tokens_per_s", "prefills",
+            "decode_steps", "b4_instance_launches", "longest_prompt")},
+            "cpu_prefill_err": max(r["errs"][0] for r in
+                                   fam["cpu_check"][arch]["rows"]),
+            "cpu_decode_err": max(max(r["errs"][1:], default=0.0) for r in
+                                  fam["cpu_check"][arch]["rows"]),
+            **({"evaluators": rec["evaluators"]} if "evaluators" in rec
+               else {})}
+        for arch, rec in fam["served"].items()},
+        "phase_s": fam["phase_s"]}))
     print(json.dumps({"lm_configs": {
         arch: {k: rec[k] for k in (
             "build_s", "weight_bytes", "peak_bytes", "wall_s",

@@ -1,9 +1,9 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke(name)``.
 
-The dense and mixture-of-experts architectures are registered: smollm-135m,
-qwen3-8b, granite-3-2b, stablelm-12b, olmoe-1b-7b and grok-1-314b. The
-reference's other ids, of families not ported yet, are known by name and
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The reference's ten architectures, every family: smollm-135m, qwen3-8b,
+granite-3-2b, stablelm-12b (dense), olmoe-1b-7b, grok-1-314b (moe),
+rwkv6-1.6b (ssm), zamba2-2.7b (hybrid), whisper-base (encdec) and
+llama-3.2-vision-90b (vlm).
 """
 
 from __future__ import annotations
@@ -11,29 +11,32 @@ from __future__ import annotations
 from . import (
     granite_3_2b,
     grok_1_314b,
+    llama32_vision_90b,
     olmoe_1b_7b,
     qwen3_8b,
+    rwkv6_1_6b,
     smollm_135m,
     stablelm_12b,
+    whisper_base,
+    zamba2_2_7b,
 )
 from .base import ModelConfig
 
 _MODULES = {
+    "whisper-base": whisper_base,
     "qwen3-8b": qwen3_8b,
     "granite-3-2b": granite_3_2b,
     "stablelm-12b": stablelm_12b,
     "smollm-135m": smollm_135m,
     "olmoe-1b-7b": olmoe_1b_7b,
     "grok-1-314b": grok_1_314b,
+    "zamba2-2.7b": zamba2_2_7b,
+    "rwkv6-1.6b": rwkv6_1_6b,
+    "llama-3.2-vision-90b": llama32_vision_90b,
 }
 
-# The reference's other architectures, with what they wait for.
-NOT_PORTED = {
-    "whisper-base": "A18c (other families: encdec)",
-    "zamba2-2.7b": "A18c (other families: hybrid)",
-    "rwkv6-1.6b": "A18c (other families: ssm)",
-    "llama-3.2-vision-90b": "A18c (other families: vlm)",
-}
+# The reference's architectures not ported yet, with what they wait for.
+NOT_PORTED: dict = {}
 
 ARCH_NAMES = tuple(_MODULES)
 

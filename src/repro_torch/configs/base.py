@@ -1,10 +1,11 @@
-"""Model configuration of the dense and mixture-of-experts families.
+"""Model configuration of every family.
 
-The port of ``repro/configs/base.py``'s :class:`ModelConfig`, cut to the
-fields the dense and MoE families read. The reference's other families
-(SSM, hybrid, encoder-decoder, VLM) are not ported yet (ROADMAP A18c);
-their fields are absent here and :meth:`ModelConfig.param_count` raises
-for them.
+The port of ``repro/configs/base.py``'s :class:`ModelConfig`: the dense,
+mixture-of-experts, SSM (rwkv6), hybrid (zamba2), encoder-decoder
+(whisper) and VLM (llama-3.2-vision) families, with the reference's
+fields, defaults and analytic :meth:`ModelConfig.param_count`. The
+reference's shape grid (``ShapeConfig``, ``SHAPES``, ``supports_shape``)
+waits for the dry run (ROADMAP A18e).
 """
 
 from __future__ import annotations
@@ -12,8 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-PORTED_FAMILIES = ("dense", "moe")
-NOT_PORTED_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -21,19 +21,16 @@ def _round_up(x: int, mult: int) -> int:
 
 
 def check_family(family: str) -> None:
-    """Raise unless ``family`` is one the port runs (``dense``, ``moe``)."""
-    if family in NOT_PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet: ROADMAP A18c "
-            "(other families)")
-    if family not in PORTED_FAMILIES:
-        raise ValueError(f"unknown model family {family!r}")
+    """Raise unless ``family`` is one of :data:`FAMILIES`."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown model family {family!r}; known: "
+                         f"{FAMILIES}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                       # dense | moe
+    family: str                       # dense | moe | hybrid | ssm | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,11 +42,31 @@ class ModelConfig:
     tie_embeddings: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
 
     # MoE
     num_experts: int = 0
     experts_per_tok: int = 0
     moe_d_ff: int = 0                 # per-expert hidden dim (olmoe: 1024)
+
+    # SSM / hybrid (zamba2-style)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    attn_every: int = 0               # shared attn block applied every k layers
+
+    # RWKV6
+    rwkv: bool = False
+    rwkv_head_dim: int = 64
+    rwkv_decay_lora: int = 64
+
+    # Encoder–decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0              # stub frontend output length (frames)
+
+    # VLM (llama-3.2-vision)
+    cross_attn_every: int = 0         # every k-th layer is gated cross-attn
+    num_image_tokens: int = 0         # stub patch-embedding length
 
     vocab_round: int = 256            # pad vocab so TP divides it
 
@@ -61,11 +78,38 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, self.vocab_round)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.rwkv
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run 500k-token decode? (SSM/hybrid/linear-attn)."""
+        return self.rwkv or self.ssm_state > 0
+
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head), as the
-        reference counts it: the final norm ``ln_f`` is not included. An
-        MoE block counts its router ``d·E`` and its experts ``E·3·d·ff``
-        in place of the SwiGLU."""
+        """Analytic parameter count (embedding + blocks + head), formula
+        for formula the reference's: the final norm ``ln_f`` is left out,
+        and so are the leaves each branch below does not count.
+
+        It is not the number of weights the model holds, for every family
+        but dense and moe. Pinned as the reference computes it:
+
+        * ssm counts four d×d matrices in the time mix, which holds five
+          (``wr``, ``wk``, ``wv``, ``wg``, ``wo``), ``4·d`` for its
+          vectors, which hold ``8·d`` (``mix`` 5·d, ``w0``, ``u``,
+          ``ln_x``), and nothing for the channel mix's ``mix`` (2·d);
+        * hybrid counts ``heads`` once for ``A_log``, ``D`` and
+          ``dt_bias`` (3·heads), nothing for the Mamba ``norm`` (d_in),
+          and ``2·d`` for the one layer norm ``ln``;
+        * encdec counts no ``enc_ln_f`` and no cross-attention ``gate``;
+        * vlm counts all L layers as self layers (a cross layer's
+          attention, norms and SwiGLU have their shapes), then
+          ``L / cross_attn_every`` attention blocks, norms and gates more:
+          each cross layer's attention and norms twice.
+
+        The card's memory figures come from the bytes of the tensors.
+        """
         check_family(self.family)
         d, f, v = self.d_model, self.d_ff, self.padded_vocab
         hd = self.head_dim
@@ -74,15 +118,40 @@ class ModelConfig:
         total = v * d                       # embedding
         if not self.tie_embeddings:
             total += v * d                  # lm head
-        attn = d * n_q + 2 * d * n_kv + n_q * d + (
-            2 * hd if self.qk_norm else 0)
-        if self.family == "moe":
+
+        def attn_params():
+            return d * n_q + 2 * d * n_kv + n_q * d + (
+                2 * hd if self.qk_norm else 0)
+
+        def dense_mlp(ff):
+            return 3 * d * ff               # SwiGLU: wi, wg, wo
+
+        if self.family == "encdec":
+            enc = self.encoder_layers * (attn_params() + dense_mlp(f) + 2 * d)
+            dec = self.num_layers * (2 * attn_params() + dense_mlp(f) + 3 * d)
+            blocks = enc + dec
+        elif self.family == "moe":
             ff = self.moe_d_ff or f
-            ffn = d * self.num_experts + self.num_experts * 3 * d * ff
-        else:
-            ffn = 3 * d * f                 # SwiGLU: wi, wg, wo
-        return total + self.num_layers * (attn + ffn + 2 * d)
+            per = attn_params() + d * self.num_experts + (
+                self.num_experts * 3 * d * ff) + 2 * d
+            blocks = self.num_layers * per
+        elif self.family == "ssm":            # rwkv6
+            per_tm = d * d * 4 + d * self.rwkv_decay_lora * 2 + 4 * d
+            per_cm = 2 * d * f + d * d      # k, v and r projections
+            blocks = self.num_layers * (per_tm + per_cm + 2 * d)
+        elif self.family == "hybrid":         # zamba2
+            d_in = self.ssm_expand * d
+            heads = d_in // self.ssm_head_dim
+            per_mamba = d * (2 * d_in + 2 * self.ssm_state + heads) + (
+                d_in * d) + heads + d_in * 4 + 2 * d
+            shared_attn = attn_params() + dense_mlp(f) + 2 * d
+            blocks = self.num_layers * per_mamba + shared_attn  # shared
+        else:                                  # dense / vlm
+            blocks = self.num_layers * (attn_params() + dense_mlp(f) + 2 * d)
+            if self.cross_attn_every:
+                n_cross = self.num_layers // self.cross_attn_every
+                blocks += n_cross * (attn_params() + 2 * d + 1)
+        return total + blocks
 
 
-__all__ = ["ModelConfig", "check_family", "PORTED_FAMILIES",
-           "NOT_PORTED_FAMILIES"]
+__all__ = ["ModelConfig", "check_family", "FAMILIES"]

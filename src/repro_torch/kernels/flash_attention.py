@@ -59,9 +59,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Launches of the kernel: the wrapper adds one where it launches it and
 # nowhere else. Read and reset by callers that show a path went through it.
 launches: Dict[str, int] = {"flash_attention": 0}
-# The same launches split by kernel instance, keyed ("float32" or
-# "bfloat16", head dim), so a caller can tell which instances a path ran.
-instance_launches: Dict[Tuple[str, int], int] = {}
+# The same launches split by kernel instance and mask, keyed ("float32" or
+# "bfloat16", head dim, causal), so a caller can tell which instances a
+# path ran, causal or not.
+instance_launches: Dict[Tuple[str, int, bool], int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -163,7 +164,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention: CUDA kernel launch failed "
                            f"({code}: {msg})")
     launches["flash_attention"] += 1
-    key = (str(q.dtype).removeprefix("torch."), D)
+    key = (str(q.dtype).removeprefix("torch."), D, bool(causal))
     instance_launches[key] = instance_launches.get(key, 0) + 1
     return out
 

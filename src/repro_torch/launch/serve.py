@@ -7,9 +7,17 @@ The port of ``repro/launch/serve.py``: the same request distribution from
 ``np.random.default_rng(seed)`` (prompts of 4–23 tokens, 2 to
 ``max_new - 1`` new tokens each), f32 weights drawn from a
 ``torch.Generator`` on the serving device seeded with ``seed`` (so a
-full-width model is drawn on the card, not the host). ``--arch`` is any
-registered architecture (``repro_torch.configs.ARCH_NAMES``: the dense
-and MoE ones). On the card every prefill runs kernel B4 once per layer.
+full-width model is drawn on the card, not the host), and the reference
+launcher's run settings where the family reads them (:func:`run_config`:
+the exact RWKV scan for ssm, SSD chunks of 16 for hybrid). ``--arch`` is
+any registered architecture (``repro_torch.configs.ARCH_NAMES``), but
+whisper-base and llama-3.2-vision-90b are refused before anything is
+built: the batcher prefills tokens only, and those families read stub
+frame or patch embeddings (``audio_embeds``, ``image_embeds``) in every
+prefill, so the reference's launcher fails at its first prefill with a
+``KeyError`` for them. Serve them through ``Model.prefill`` with the
+embeddings and ``Model.decode_step``. On the card every prefill runs
+kernel B4 at each attention layer.
 """
 
 from __future__ import annotations
@@ -20,18 +28,42 @@ import numpy as np
 import torch
 
 from ..configs import ARCH_NAMES, get_config, get_smoke
+from ..configs.base import ModelConfig
 from ..models import build_model
+from ..models.transformer import STUB_INPUTS, RunConfig
 from ..serve.batching import ContinuousBatcher, Request
 from ..util import DeviceLike, resolve_device
+
+
+def run_config(cfg: ModelConfig) -> RunConfig:
+    """The reference launcher's settings (``rwkv_impl="scan"``,
+    ``ssd_chunk=16``), each passed only to the family that reads it."""
+    return RunConfig(**{"ssm": {"rwkv_impl": "scan"},
+                        "hybrid": {"ssd_chunk": 16}}.get(cfg.family, {}))
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family whose prefill reads a stub input
+    the batcher does not carry (encdec, vlm)."""
+    key = STUB_INPUTS.get(cfg.family)
+    if key is not None:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family's prefill reads "
+            f"{key!r}, which ContinuousBatcher does not carry (it prefills "
+            f"tokens only; the reference's launcher fails there with "
+            f"KeyError: {key!r}); call Model.prefill with {key}= and "
+            f"Model.decode_step instead")
 
 
 def run(arch: str, smoke: bool, n_requests: int, max_new: int,
         max_slots: int = 4, cache_len: int = 160, seed: int = 0,
         device: DeviceLike = None):
     cfg = get_smoke(arch) if smoke else get_config(arch)
+    check_servable(cfg)
     dev = resolve_device(device)
     model = build_model(cfg, device=dev, dtype=torch.float32,
-                        generator=torch.Generator(dev).manual_seed(seed))
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        rc=run_config(cfg))
 
     rng = np.random.default_rng(seed)
     batcher = ContinuousBatcher(model, max_slots=max_slots,

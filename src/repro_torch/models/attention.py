@@ -17,14 +17,18 @@ reference's three implementations with one contract:
 * ``impl='naive'``: the quadratic reference, for tiny smoke shapes.
 
 The naive and chunked forms work in the reference's grouped layout
-``(B, S, KH, G, hd)``: KV is never repeated to H heads. Cross-attention
-(``kv_x``) and the non-causal encoder path belong to families not ported
-yet (ROADMAP A18).
+``(B, S, KH, G, hd)``: KV is never repeated to H heads. Each impl takes
+the ``causal`` flag: whisper's encoder and every cross-attention
+(``kv_x``: keys and values from another sequence, no RoPE) are
+non-causal, with Sq ≠ Sk for cross-attention. A cross-attention layer
+(``Attention(cross=True)``) has no qk-norm and a ``gate`` (1,), zero at
+init, whose ``tanh`` scales its output.
 
 Decode attends a one-token query against a padded cache with a position
 mask. Unlike the reference, which returns updated caches functionally,
 :func:`decode_attention` writes the new key and value into the caches it
-is given, in place.
+is given, in place; cross-attention decode reads a cache it does not
+write (``update_cache``, ``rope_on_q`` and ``mask_to_pos`` off).
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ from .common import apply_rope, dense_init, head_rms_norm, linear, weight
 
 class Attention(nn.Module):
     """Weights of one attention layer: wq (d, H·hd), wk/wv (d, KH·hd),
-    wo (H·hd, d), and the qk-norm scales where the config has them."""
+    wo (H·hd, d), and the qk-norm scales where the config has them; a
+    cross-attention layer has no qk-norm and a ``gate`` (1,) of zeros."""
 
-    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -53,13 +59,16 @@ class Attention(nn.Module):
         self.wk = weight(dense_init((d, nkv), generator, dtype, device))
         self.wv = weight(dense_init((d, nkv), generator, dtype, device))
         self.wo = weight(dense_init((nq, d), generator, dtype, device))
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = weight(torch.ones(hd, dtype=dtype, device=device))
             self.k_norm = weight(torch.ones(hd, dtype=dtype, device=device))
+        if cross:
+            self.gate = weight(torch.zeros(1, dtype=dtype, device=device))
 
 
-def init_attention(cfg: ModelConfig, generator, dtype, device) -> Attention:
-    return Attention(cfg, generator, dtype, device)
+def init_attention(cfg: ModelConfig, generator, dtype, device,
+                   cross: bool = False) -> Attention:
+    return Attention(cfg, generator, dtype, device, cross)
 
 
 class AttnOutput(NamedTuple):
@@ -69,19 +78,31 @@ class AttnOutput(NamedTuple):
 
 
 def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor):
-    """q (B,S,H,hd) and k, v (B,S,KH,hd), normed and rotated."""
+             positions: Optional[torch.Tensor],
+             kv_x: Optional[torch.Tensor] = None, rope: bool = True):
+    """q (B,S,H,hd) from x and k, v (B,Sk,KH,hd) from ``kv_x`` (x when
+    None), qk-normed where the layer has the scales, and rotated when
+    ``rope`` and the model is not attention-free."""
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
     hd, h, kh = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     q = linear(x, p.wq).reshape(b, s, h, hd)
-    k = linear(x, p.wk).reshape(b, s, kh, hd)
-    v = linear(x, p.wv).reshape(b, s, kh, hd)
-    if cfg.qk_norm:
+    k = linear(src, p.wk).reshape(b, src.shape[1], kh, hd)
+    v = linear(src, p.wv).reshape(b, src.shape[1], kh, hd)
+    if cfg.qk_norm and hasattr(p, "q_norm"):
         q = head_rms_norm(q, p.q_norm, cfg.norm_eps)
         k = head_rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope and not cfg.attention_free:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _gated(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """A cross-attention layer's output times ``tanh(gate)``."""
+    if hasattr(p, "gate"):
+        return out * torch.tanh(p.gate.to(out.dtype))
+    return out
 
 
 IMPLS = ("naive", "chunked", "pallas")
@@ -183,60 +204,72 @@ def _pallas_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, impl: str,
+              positions: Optional[torch.Tensor], *, impl: str,
+              kv_x: Optional[torch.Tensor] = None, causal: bool = True,
               return_kv: bool = False) -> AttnOutput:
-    """Causal self-attention over the full sequence. x (B,S,D).
+    """Full-sequence attention (prefill, training, encoder, cross).
+    x (B,S,D); ``kv_x`` (B,Sk,D) makes it cross-attention, without RoPE
+    (``positions`` may then be None).
 
     ``impl`` is one of :data:`IMPLS`, and every caller names it: serving
     takes ``pallas`` (kernel B4), training its ``RunConfig.attn_impl``
-    (``chunked`` by default, as in the reference).
+    (``chunked`` by default, as in the reference). Causal rows are offset
+    by ``Sk - S``, as the reference offsets them.
     """
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} is not one of {IMPLS}")
     b, s, _ = x.shape
-    q, k, v = _project(p, cfg, x, positions)
+    q, k, v = _project(p, cfg, x, positions, kv_x, rope=kv_x is None)
     qg = q.reshape(b, s, cfg.num_kv_heads,
                    cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+    row_offset = k.shape[1] - s if causal else 0
     if impl == "naive":
-        o = naive_attention(qg, k, v, causal=True)
+        o = naive_attention(qg, k, v, causal, row_offset)
     elif impl == "chunked":
-        o = chunked_attention(qg, k, v, causal=True)
+        o = chunked_attention(qg, k, v, causal, row_offset)
     else:
-        o = _pallas_attention(qg, k, v, causal=True)
+        o = _pallas_attention(qg, k, v, causal)
     o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return AttnOutput(out=linear(o, p.wo), k=k if return_kv else None,
+    return AttnOutput(out=_gated(p, linear(o, p.wo)),
+                      k=k if return_kv else None,
                       v=v if return_kv else None)
 
 
 def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                     pos: int, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor) -> AttnOutput:
+                     pos: int, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     *, update_cache: bool = True, rope_on_q: bool = True,
+                     mask_to_pos: bool = True) -> AttnOutput:
     """One-token decode. x (B,1,D); cache_k/v (B,S,KH,hd); pos an int.
 
     Writes the new key and value at ``pos`` of ``cache_k``/``cache_v`` in
-    place and attends keys ``<= pos``. The casts are the reference's: the
-    scaled query goes to the cache dtype before the score product and the
+    place (``update_cache``) and attends keys ``<= pos``
+    (``mask_to_pos``); the query and the new key are rotated at ``pos``
+    (``rope_on_q``). Cross-attention turns all three off and reads the
+    whole cached cross K/V. The casts are the reference's: the scaled
+    query goes to the cache dtype before the score product and the
     probabilities before the value product, and both products accumulate
     in f32 (operands widened to f32, which holds bf16 products exactly).
     """
     b = x.shape[0]
     hd, h, kh = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project(p, cfg, x, posv)
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    q, k_new, v_new = _project(p, cfg, x, posv, rope=rope_on_q)
+    if update_cache:
+        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
 
     qg = q.reshape(b, 1, kh, h // kh, hd)
     scale = 1.0 / (hd ** 0.5)
     s = torch.einsum("bqkgd,bskd->bkgqs",
                      (qg * scale).to(cache_k.dtype).float(), cache_k.float())
-    keep = torch.arange(cache_k.shape[1], device=x.device) <= pos
-    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    if mask_to_pos:
+        keep = torch.arange(cache_k.shape[1], device=x.device) <= pos
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     probs = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs.to(cache_v.dtype).float(),
                      cache_v.float())
     o = o.to(x.dtype).reshape(b, 1, h * hd)
-    return AttnOutput(out=linear(o, p.wo), k=cache_k, v=cache_v)
+    return AttnOutput(out=_gated(p, linear(o, p.wo)), k=cache_k, v=cache_v)
 
 
 __all__ = ["Attention", "init_attention", "attention", "decode_attention",

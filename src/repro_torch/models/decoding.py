@@ -1,18 +1,31 @@
-"""Prefill and single-token decode for the dense and MoE families.
+"""Prefill and single-token decode for every family.
 
-The port of ``repro/models/decoding.py``'s dense/moe branch. Caches are a
-dict ``{"k", "v"}`` of ``(L, B, S, KH, hd)`` tensors, bf16 by default as in
-the reference. :func:`prefill` writes the prompt's keys and values (after
-RoPE) into fresh zero caches, every layer's attention through kernel B4
-whatever the model's ``RunConfig`` says; :func:`decode_step` writes one
-position of every layer's cache in place, where the reference threads the
-caches through its layer scan and returns new ones. An MoE block runs
-``moe`` with the ``RunConfig``'s ``moe_impl``, ``moe_capacity`` and
-``moe_token_chunk`` over the call's B·S tokens, so its capacity follows
-the prompt's length in prefill and is one token's in decode. Both run
-under ``torch.no_grad()``: serving takes no gradient, so weights made
-trainable by training serve through B4 as well. Other families raise
-``NotImplementedError`` (ROADMAP A18c).
+The port of ``repro/models/decoding.py``. Caches are a dict of tensors,
+stacked as the layers that read them:
+
+  dense/moe — k/v (L, B, S, KH, hd)
+  vlm       — self k/v (G, k−1, B, S, KH, hd), cross xk/xv (G, B, Timg, KH, hd)
+  hybrid    — Mamba conv (G, k, B, K−1, d_in), ssm (G, k, B, H, N, P) and
+              the shared attention's ak/av (G, B, S, KH, hd)
+  ssm       — token-shift carries tm_prev/cm_prev (L, B, 1, d), wkv
+              state (L, B, H, N, N)
+  encdec    — decoder self k/v (L, B, S, KH, hd), cross xk/xv
+              (L, B, Tenc, KH, hd)
+
+Keys, values, the token-shift carries and the Mamba conv states are kept
+in the cache dtype (bf16 by default, as in the reference), the wkv and SSD
+states in f32; decode casts each carry back to the activations' dtype on
+reading it, as the reference does. :func:`prefill` writes fresh zero caches
+and runs every attention through kernel B4 (the hybrid's shared block,
+whisper's encoder and its decoder's self- and cross-attention, the VLM's
+self and cross layers) whatever the model's ``RunConfig`` says; its
+RWKV evaluator is ``rc.rwkv_impl`` and its SSD chunk ``rc.ssd_chunk``.
+:func:`decode_step` writes one position of every cache in place, where the
+reference threads the caches through its layer scan and returns new ones;
+it runs RWKV by the exact scan whatever ``rc.rwkv_impl`` says, and
+cross-attention reads the cached cross K/V without writing, rotating or
+masking. An MoE block runs ``moe`` with the ``RunConfig``'s MoE fields
+over the call's B·S tokens. Both run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -22,9 +35,13 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig, check_family
+from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .attention import attention, decode_attention
 from .common import rms_norm
-from .transformer import RunConfig, Transformer, ffn, lm_head
+from .mlp import mlp
+from .transformer import (RunConfig, Transformer, check_stub_inputs, encode,
+                          ffn, lm_head)
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
@@ -32,9 +49,38 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device=None) -> Dict[str, torch.Tensor]:
     """Empty (zero) caches sized for ``seq_len`` decode."""
     check_family(cfg.family)
-    shape = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.family in ("dense", "moe"):
+        shp = (cfg.num_layers, batch, seq_len, kh, hd)
+        return {"k": zeros(*shp), "v": zeros(*shp)}
+    if cfg.family == "vlm":
+        g = cfg.num_layers // cfg.cross_attn_every
+        shp = (g, cfg.cross_attn_every - 1, batch, seq_len, kh, hd)
+        xshp = (g, batch, cfg.num_image_tokens, kh, hd)
+        return {"k": zeros(*shp), "v": zeros(*shp), "xk": zeros(*xshp),
+                "xv": zeros(*xshp)}
+    if cfg.family == "hybrid":
+        g, k = cfg.num_layers // cfg.attn_every, cfg.attn_every
+        d_in, h, n = ssm_mod.ssm_dims(cfg)
+        shp = (g, batch, seq_len, kh, hd)
+        return {"conv": zeros(g, k, batch, ssm_mod.CONV_K - 1, d_in),
+                "ssm": zeros(g, k, batch, h, n, cfg.ssm_head_dim,
+                             dt=torch.float32),
+                "ak": zeros(*shp), "av": zeros(*shp)}
+    if cfg.family == "ssm":
+        h, n = rwkv_mod.rwkv_dims(cfg)
+        lyr = cfg.num_layers
+        return {"tm_prev": zeros(lyr, batch, 1, cfg.d_model),
+                "cm_prev": zeros(lyr, batch, 1, cfg.d_model),
+                "state": zeros(lyr, batch, h, n, n, dt=torch.float32)}
+    shp = (cfg.num_layers, batch, seq_len, kh, hd)               # encdec
+    xshp = (cfg.num_layers, batch, cfg.encoder_seq, kh, hd)
+    return {"k": zeros(*shp), "v": zeros(*shp), "xk": zeros(*xshp),
+            "xv": zeros(*xshp)}
 
 
 def _logits(params: Transformer, cfg: ModelConfig,
@@ -48,24 +94,90 @@ def _logits(params: Transformer, cfg: ModelConfig,
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
             cache_dtype: torch.dtype = torch.bfloat16,
-            rc: Optional[RunConfig] = None):
+            rc: Optional[RunConfig] = None,
+            audio_embeds: Optional[torch.Tensor] = None,
+            image_embeds: Optional[torch.Tensor] = None):
     """Run the prompt tokens (B, S); returns (last-token logits (B, Vpad)
     in f32, caches padded with zeros to ``cache_len``). ``rc`` (default
-    ``RunConfig()``) gives the MoE fields."""
+    ``RunConfig()``) gives the MoE, RWKV and SSD fields; an encdec model
+    reads ``audio_embeds``, a VLM ``image_embeds``."""
+    check_stub_inputs(cfg, audio_embeds, image_embeds)
     rc = rc or RunConfig()
     b, s = tokens.shape
     cache_len = cache_len or s
     x = params.embed[tokens]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    caches = init_caches(cfg, b, cache_len, cache_dtype, x.device)
-    for layer, p in enumerate(params.blocks):
-        out = attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
+    c = init_caches(cfg, b, cache_len, cache_dtype, x.device)
+
+    def self_attn(p, x_, k_cache, v_cache):
+        """x_ plus p's causal self-attention through B4; its keys and
+        values written into the first s positions of the caches."""
+        out = attention(p.attn, cfg, rms_norm(x_, p.ln1, cfg.norm_eps),
                         positions, impl="pallas", return_kv=True)
-        x = x + out.out
-        x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
-        caches["k"][layer, :, :s] = out.k.to(cache_dtype)
-        caches["v"][layer, :, :s] = out.v.to(cache_dtype)
-    return _logits(params, cfg, x), caches
+        k_cache[:, :s] = out.k.to(cache_dtype)
+        v_cache[:, :s] = out.v.to(cache_dtype)
+        return x_ + out.out
+
+    def cross_attn(p, ln, x_, src, k_cache, v_cache):
+        """x_ plus the gated cross-attention p over src through B4; its
+        keys and values written into the cross caches."""
+        out = attention(p, cfg, rms_norm(x_, ln, cfg.norm_eps), None,
+                        kv_x=src, causal=False, impl="pallas",
+                        return_kv=True)
+        k_cache.copy_(out.k.to(cache_dtype))
+        v_cache.copy_(out.v.to(cache_dtype))
+        return x_ + out.out
+
+    if cfg.family in ("dense", "moe"):
+        for layer, p in enumerate(params.blocks):
+            x = self_attn(p, x, c["k"][layer], c["v"][layer])
+            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+    elif cfg.family == "ssm":
+        h, n = rwkv_mod.rwkv_dims(cfg)
+        zero_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+        zero_state = torch.zeros((b, h, n, n), dtype=torch.float32,
+                                 device=x.device)
+        for layer, p in enumerate(params.blocks):
+            z = rms_norm(x, p.ln1, cfg.norm_eps)
+            o, tm_c, st = rwkv_mod.rwkv_time_mix(p.tm, cfg, z, zero_prev,
+                                                 zero_state, impl=rc.rwkv_impl)
+            x = x + o
+            z = rms_norm(x, p.ln2, cfg.norm_eps)
+            o, cm_c = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z, zero_prev)
+            x = x + o
+            c["tm_prev"][layer] = tm_c.to(cache_dtype)
+            c["cm_prev"][layer] = cm_c.to(cache_dtype)
+            c["state"][layer] = st
+    elif cfg.family == "hybrid":
+        shared = params.shared_attn
+        for g, group in enumerate(params.mamba_groups):
+            for j, p in enumerate(group):
+                o, mc = ssm_mod.mamba_block(
+                    p.mamba, cfg, rms_norm(x, p.ln, cfg.norm_eps),
+                    chunk=rc.ssd_chunk)
+                x = x + o
+                c["conv"][g, j] = mc.conv.to(cache_dtype)
+                c["ssm"][g, j] = mc.ssm
+            x = self_attn(shared, x, c["ak"][g], c["av"][g])
+            x = x + mlp(shared.mlp, rms_norm(x, shared.ln2, cfg.norm_eps))
+    elif cfg.family == "vlm":
+        img = image_embeds.to(x.dtype)
+        for g, (group, pc) in enumerate(zip(params.self_groups,
+                                            params.cross_layers)):
+            for j, p in enumerate(group):
+                x = self_attn(p, x, c["k"][g, j], c["v"][g, j])
+                x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+            x = cross_attn(pc.xattn, pc.ln1, x, img, c["xk"][g], c["xv"][g])
+            x = x + mlp(pc.mlp, rms_norm(x, pc.ln2, cfg.norm_eps))
+    else:                                               # encdec
+        enc = encode(params, cfg, rc, audio_embeds, impl="pallas")
+        for layer, p in enumerate(params.blocks):
+            x = self_attn(p, x, c["k"][layer], c["v"][layer])
+            x = cross_attn(p.xattn, p.ln_x, x, enc, c["xk"][layer],
+                           c["xv"][layer])
+            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+    return _logits(params, cfg, x), c
 
 
 @torch.no_grad()
@@ -74,16 +186,73 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
                 rc: Optional[RunConfig] = None):
     """token (B,); pos an int. Returns (logits (B, Vpad) in f32, caches).
 
-    The caches are updated in place at ``pos`` and returned as given.
-    ``rc`` (default ``RunConfig()``) gives the MoE fields.
+    The caches are updated in place at ``pos`` (the recurrent states
+    replaced) and returned as given. ``rc`` (default ``RunConfig()``)
+    gives the MoE fields.
     """
     rc = rc or RunConfig()
+    c = caches
     x = params.embed[token[:, None]]                     # (B, 1, D)
-    for layer, p in enumerate(params.blocks):
-        out = decode_attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
-                               pos, caches["k"][layer], caches["v"][layer])
-        x = x + out.out
-        x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+
+    def self_attn(p, x_, k_cache, v_cache):
+        out = decode_attention(p.attn, cfg, rms_norm(x_, p.ln1, cfg.norm_eps),
+                               pos, k_cache, v_cache)
+        return x_ + out.out
+
+    def cross_attn(p, ln, x_, k_cache, v_cache):
+        out = decode_attention(p, cfg, rms_norm(x_, ln, cfg.norm_eps), pos,
+                               k_cache, v_cache, update_cache=False,
+                               rope_on_q=False, mask_to_pos=False)
+        return x_ + out.out
+
+    if cfg.family in ("dense", "moe"):
+        for layer, p in enumerate(params.blocks):
+            x = self_attn(p, x, c["k"][layer], c["v"][layer])
+            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+    elif cfg.family == "ssm":
+        for layer, p in enumerate(params.blocks):
+            tm_prev, cm_prev = c["tm_prev"][layer], c["cm_prev"][layer]
+            z = rms_norm(x, p.ln1, cfg.norm_eps)
+            o, tm_c, st = rwkv_mod.rwkv_time_mix(
+                p.tm, cfg, z, tm_prev.to(z.dtype), c["state"][layer],
+                impl="scan")
+            x = x + o
+            z = rms_norm(x, p.ln2, cfg.norm_eps)
+            o, cm_c = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z,
+                                                cm_prev.to(z.dtype))
+            x = x + o
+            tm_prev.copy_(tm_c.to(tm_prev.dtype))
+            cm_prev.copy_(cm_c.to(cm_prev.dtype))
+            c["state"][layer] = st
+    elif cfg.family == "hybrid":
+        shared = params.shared_attn
+        for g, group in enumerate(params.mamba_groups):
+            for j, p in enumerate(group):
+                z = rms_norm(x, p.ln, cfg.norm_eps)
+                conv = c["conv"][g, j]
+                o, mc = ssm_mod.mamba_step(
+                    p.mamba, cfg, z,
+                    ssm_mod.MambaCache(conv=conv.to(z.dtype),
+                                       ssm=c["ssm"][g, j]))
+                x = x + o
+                conv.copy_(mc.conv.to(conv.dtype))
+                c["ssm"][g, j] = mc.ssm
+            x = self_attn(shared, x, c["ak"][g], c["av"][g])
+            x = x + mlp(shared.mlp, rms_norm(x, shared.ln2, cfg.norm_eps))
+    elif cfg.family == "vlm":
+        for g, (group, pc) in enumerate(zip(params.self_groups,
+                                            params.cross_layers)):
+            for j, p in enumerate(group):
+                x = self_attn(p, x, c["k"][g, j], c["v"][g, j])
+                x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+            x = cross_attn(pc.xattn, pc.ln1, x, c["xk"][g], c["xv"][g])
+            x = x + mlp(pc.mlp, rms_norm(x, pc.ln2, cfg.norm_eps))
+    else:                                               # encdec
+        for layer, p in enumerate(params.blocks):
+            x = self_attn(p, x, c["k"][layer], c["v"][layer])
+            x = cross_attn(p.xattn, p.ln_x, x, c["xk"][layer],
+                           c["xv"][layer])
+            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
     return _logits(params, cfg, x), caches
 
 

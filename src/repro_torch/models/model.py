@@ -20,8 +20,13 @@ from .transformer import RunConfig
 
 
 class Model(transformer.Transformer):
-    """A dense or MoE model's weights, its ``RunConfig`` and its entry
-    points."""
+    """A model's weights, its ``RunConfig`` and its entry points.
+
+    An encdec model's entry points take the stub frame embeddings
+    ``audio_embeds`` (B, encoder_seq, d), a VLM's the stub patch
+    embeddings ``image_embeds`` (B, num_image_tokens, d), under the
+    reference's batch keys; without them they raise ``ValueError`` naming
+    the key."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
                  dtype: torch.dtype, device: torch.device,
@@ -30,17 +35,27 @@ class Model(transformer.Transformer):
         self.rc = rc or RunConfig()
         self.rc.check(cfg.family)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return transformer.forward(self, self.cfg, self.rc, tokens)
+    def forward(self, tokens: torch.Tensor,
+                audio_embeds: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return transformer.forward(self, self.cfg, self.rc, tokens,
+                                   audio_embeds=audio_embeds,
+                                   image_embeds=image_embeds)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token loss of ``{"tokens", "labels"}`` (B, S)."""
+        """Mean next-token loss of ``{"tokens", "labels"}`` (B, S), with
+        ``audio_embeds`` or ``image_embeds`` where the family reads
+        them."""
         return transformer.loss_fn(self, self.cfg, self.rc, batch)
 
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
-                cache_dtype: torch.dtype = torch.bfloat16):
+                cache_dtype: torch.dtype = torch.bfloat16,
+                audio_embeds: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None):
         return decoding.prefill(self, self.cfg, tokens, cache_len=cache_len,
-                                cache_dtype=cache_dtype, rc=self.rc)
+                                cache_dtype=cache_dtype, rc=self.rc,
+                                audio_embeds=audio_embeds,
+                                image_embeds=image_embeds)
 
     def decode_step(self, token: torch.Tensor,
                     caches: Dict[str, torch.Tensor], pos: int):

@@ -1,0 +1,206 @@
+"""Mamba2 (SSD) block: chunked parallel scan and the one-token decode step.
+
+The port of ``repro/models/ssm.py``. State space per head (scalar-decay
+SSD):
+    h_t = a_t · h_{t-1} + dt_t · B_t ⊗ x_t          a_t = exp(A · dt_t) ∈ (0,1)
+    y_t = C_t · h_t + D · x_t
+
+:func:`ssd_chunked` splits T into chunks of Q: within a chunk the
+quadratic form ``(C Bᵀ ⊙ L) (dt·x)`` with the decay mask
+``L[i,j] = exp(cum[i] − cum[j])`` for i ≥ j and 0 above the diagonal
+(selected with ``where``: ``exp(diff)`` is +inf there, and a multiplied
+mask would give NaN); across chunks a loop carries the (H, N, P) state.
+As in the reference, the causal depthwise conv is applied to the x stream
+only and B/C are shared across heads (one group, zamba2-2.7B's
+configuration). The reference computes all of it with XLA ops outside any
+Pallas kernel, so the port computes it in plain torch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .common import dense_init, linear, rms_norm, weight
+
+CONV_K = 4
+
+
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    d_in = cfg.ssm_expand * cfg.d_model
+    heads = d_in // cfg.ssm_head_dim
+    return d_in, heads, cfg.ssm_state
+
+
+class Mamba(nn.Module):
+    """Weights of one Mamba2 block: ``in_proj`` (d, 2·d_in + 2·N + H),
+    ``conv_w`` (CONV_K, d_in) drawn at fan-in CONV_K, ``A_log``, ``D``,
+    ``dt_bias`` (H,) f32 whatever the dtype, ``norm`` (d_in,) and
+    ``out_proj`` (d_in, d)."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        d_in, h, n = ssm_dims(cfg)
+        f32 = torch.float32
+        self.in_proj = weight(dense_init((d, 2 * d_in + 2 * n + h), generator,
+                                         dtype, device))
+        self.conv_w = weight(dense_init((CONV_K, d_in), generator, dtype,
+                                        device, in_axis_size=CONV_K))
+        self.A_log = weight(torch.zeros(h, dtype=f32, device=device))
+        self.D = weight(torch.ones(h, dtype=f32, device=device))
+        self.dt_bias = weight(torch.zeros(h, dtype=f32, device=device))
+        self.norm = weight(torch.ones(d_in, dtype=dtype, device=device))
+        self.out_proj = weight(dense_init((d_in, d), generator, dtype,
+                                          device))
+
+
+def _split_proj(proj, d_in, h, n):
+    z = proj[..., :d_in]
+    xs = proj[..., d_in:2 * d_in]
+    bv = proj[..., 2 * d_in:2 * d_in + n]
+    cv = proj[..., 2 * d_in + n:2 * d_in + 2 * n]
+    dt = proj[..., 2 * d_in + 2 * n:]
+    return z, xs, bv, cv, dt
+
+
+def _causal_conv(xs: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, kernel CONV_K. xs (B,T,C); state (B,K-1,C).
+    The new state is the last K-1 rows of ``state ++ xs`` (decode's
+    ``t = 1 < K-1`` included)."""
+    b, t, c = xs.shape
+    if state is None:
+        state = torch.zeros((b, CONV_K - 1, c), dtype=xs.dtype,
+                            device=xs.device)
+    xp = torch.cat([state, xs], dim=1)
+    out = sum(xp[:, i:i + t, :] * w[i][None, None, :] for i in range(CONV_K))
+    new_state = xp[:, t:, :] if t >= CONV_K - 1 else xp[:, -(CONV_K - 1):, :]
+    return out, new_state
+
+
+def ssd_chunked(x, a_log, bv, cv, chunk: int = 64, init_state=None):
+    """Chunked SSD. x (B,T,H,P); a_log (B,T,H) = A·dt (≤0);
+    bv/cv (B,T,N). Returns y (B,T,H,P) f32, final state (B,H,N,P).
+    T is padded with zeros to whole chunks."""
+    b, t, h, p = x.shape
+    n = bv.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        a_log = torch.nn.functional.pad(a_log, (0, 0, 0, pad))
+        bv = torch.nn.functional.pad(bv, (0, 0, 0, pad))
+        cv = torch.nn.functional.pad(cv, (0, 0, 0, pad))
+    tt = t + pad
+    nc = tt // chunk
+    xq = x.reshape(b, nc, chunk, h, p).float()
+    aq = a_log.reshape(b, nc, chunk, h).float()
+    bq = bv.reshape(b, nc, chunk, n).float()
+    cq = cv.reshape(b, nc, chunk, n).float()
+
+    cum = torch.cumsum(aq, dim=2)                     # (B,nc,Q,H) inclusive
+    # Intra-chunk: scores[i,j] = (C_i·B_j)·exp(cum_i − cum_j), i ≥ j.
+    cb = torch.einsum("bcin,bcjn->bcij", cq, bq)      # (B,nc,Q,Q)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
+    iq = torch.arange(chunk, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
+    l_mask = torch.where(causal, torch.exp(diff), torch.zeros_like(diff))
+    scores = cb[..., None] * l_mask                   # (B,nc,Q,Q,H)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xq)
+
+    # Chunk summary states and the inter-chunk loop.
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,Q,H)
+    s_chunk = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bq, decay_to_end, xq)
+    total_decay = torch.exp(cum[:, :, -1, :])         # (B,nc,H)
+    s = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * total_decay[:, c, :, None, None] + s_chunk[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)             # (B,nc,H,N,P)
+    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", cq, torch.exp(cum),
+                           s_prevs)
+    y = (y_intra + y_inter).reshape(b, tt, h, p)[:, :t]
+    return y, s
+
+
+def ssd_step(state, x_t, a_t, b_t, c_t):
+    """One decode step. state (B,H,N,P); x_t (B,H,P); a_t (B,H);
+    b_t/c_t (B,N)."""
+    state = state * a_t[..., None, None] + torch.einsum(
+        "bn,bhp->bhnp", b_t, x_t)
+    y = torch.einsum("bn,bhnp->bhp", c_t, state)
+    return state, y
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor   # (B, K-1, d_in)
+    ssm: torch.Tensor    # (B, H, N, P)
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int,
+                     dtype: torch.dtype = torch.float32,
+                     device=None) -> MambaCache:
+    d_in, h, n = ssm_dims(cfg)
+    return MambaCache(
+        conv=torch.zeros((batch, CONV_K - 1, d_in), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, h, n, cfg.ssm_head_dim), dtype=torch.float32,
+                        device=device))
+
+
+def _gated_out(p: Mamba, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    y = rms_norm(y.to(dtype) * torch.nn.functional.silu(z), p.norm,
+                 cfg.norm_eps)
+    return linear(y, p.out_proj)
+
+
+def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
+                cache: Optional[MambaCache] = None, chunk: int = 64):
+    """Full-sequence Mamba2 block. x (B,T,d) → (B,T,d), new cache."""
+    b, t, _ = x.shape
+    d_in, h, n = ssm_dims(cfg)
+    hp = cfg.ssm_head_dim
+    z, xs, bv, cv, dt = _split_proj(linear(x, p.in_proj), d_in, h, n)
+    xs, new_conv = _causal_conv(xs, p.conv_w,
+                                cache.conv if cache is not None else None)
+    xs = torch.nn.functional.silu(xs)
+    dt = torch.nn.functional.softplus(dt.float() + p.dt_bias)
+    a_log = -torch.exp(p.A_log) * dt                 # (B,T,H) ≤ 0
+    xh = xs.reshape(b, t, h, hp)
+    y, s_final = ssd_chunked(xh.float() * dt[..., None], a_log, bv, cv,
+                             chunk=chunk,
+                             init_state=cache.ssm if cache is not None
+                             else None)
+    y = y + p.D[None, None, :, None] * xh.float()
+    out = _gated_out(p, cfg, y.reshape(b, t, d_in), z, x.dtype)
+    return out, MambaCache(conv=new_conv, ssm=s_final)
+
+
+def mamba_step(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
+               cache: MambaCache):
+    """One-token decode. x (B,1,d)."""
+    b = x.shape[0]
+    d_in, h, n = ssm_dims(cfg)
+    hp = cfg.ssm_head_dim
+    z, xs, bv, cv, dt = _split_proj(linear(x, p.in_proj), d_in, h, n)
+    xs, new_conv = _causal_conv(xs, p.conv_w, cache.conv)
+    xs = torch.nn.functional.silu(xs)
+    dt = torch.nn.functional.softplus(dt.float() + p.dt_bias)[:, 0]
+    a = torch.exp(-torch.exp(p.A_log) * dt)          # (B,H)
+    xh = xs.reshape(b, h, hp).float()
+    state, y = ssd_step(cache.ssm, xh * dt[..., None], a, bv[:, 0].float(),
+                        cv[:, 0].float())
+    y = y + p.D[None, :, None] * xh
+    out = _gated_out(p, cfg, y.reshape(b, 1, d_in), z, x.dtype)
+    return out, MambaCache(conv=new_conv, ssm=state)
+
+
+__all__ = ["Mamba", "mamba_block", "mamba_step", "MambaCache",
+           "init_mamba_cache", "ssd_chunked", "ssd_step", "ssm_dims",
+           "CONV_K"]

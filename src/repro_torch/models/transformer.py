@@ -1,18 +1,29 @@
-"""Dense and MoE model assembly: weights, blocks, forward, head, loss.
+"""Model assembly for every family: weights, blocks, forward, head, loss.
 
-The port of ``repro/models/transformer.py``'s dense and moe families,
-which share one block: attention, then a SwiGLU (``mlp``) or, where the
-config has experts, a mixture of experts (``moe``). The reference stacks
-each weight over a leading layer axis and scans it; here every layer is a
-:class:`Block` module in a ``ModuleList`` and the loop is a Python loop,
-which eager PyTorch runs without compiling. ``RunConfig`` keeps every
-field of the reference's; both families read ``attn_impl``, ``remat`` and
-``loss_chunk``, the moe family also ``moe_impl``, ``moe_capacity`` and
-``moe_token_chunk``, and a non-default value of a field the family does
-not read is refused (:meth:`RunConfig.check`). The loss avoids
-materialising (B, S, V) logits by taking the vocabulary projection and the
-softmax cross-entropy a sequence chunk at a time, each chunk
-checkpointed. Other families raise ``NotImplementedError`` (ROADMAP A18c).
+The port of ``repro/models/transformer.py``. The reference stacks each
+weight over a leading layer axis (two for grouped stacks) and scans it;
+here every layer is a module in a ``ModuleList`` and the loop is a Python
+loop, which eager PyTorch runs without compiling. The families:
+
+  dense / moe — one :class:`Block` a layer (attention, then a SwiGLU or,
+                where the config has experts, a mixture of experts)
+  vlm         — ``self_groups``: L/k groups of k−1 :class:`Block` s, and
+                ``cross_layers``: one gated :class:`CrossLayer` a group,
+                attending the stub image embeddings
+  hybrid      — ``mamba_groups``: L/k groups of k :class:`MambaLayer` s,
+                each group followed by the one ``shared_attn``
+                :class:`Block` (its weights applied L/k times)
+  ssm         — one :class:`RWKVBlock` a layer (time mix, channel mix)
+  encdec      — ``encoder`` (non-causal :class:`Block` s over the stub
+                frame embeddings) and ``enc_ln_f``, then decoder
+                ``blocks``: causal self-attention, cross-attention to the
+                encoder output, SwiGLU (:class:`DecoderBlock`)
+
+``RunConfig`` keeps every field of the reference's; a non-default value of
+a field the family does not read is refused (:meth:`RunConfig.check`).
+The loss avoids materialising (B, S, V) logits by taking the vocabulary
+projection and the softmax cross-entropy a sequence chunk at a time, each
+chunk checkpointed.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, check_family
 from ..kernels.ref import NEG_INF
+from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .attention import Attention, attention
 from .common import dense_init, rms_norm, weight
 from .mlp import MLP, MoE, mlp, moe
@@ -44,29 +57,30 @@ class RunConfig:
     ssd_chunk: int = 64
     mesh: object = None              # required by moe_impl='ep_local'
 
-    # Fields the dense family never reads: MoE, RWKV, SSD and the mesh.
+    # Fields only some families read, by family; every family reads
+    # attn_impl, remat and loss_chunk, and none reads mesh yet.
+    FAMILY_FIELDS = {"moe": ("moe_impl", "moe_capacity", "moe_token_chunk"),
+                     "ssm": ("rwkv_impl",), "hybrid": ("ssd_chunk",)}
     OTHER_FAMILIES = ("moe_impl", "moe_capacity", "moe_token_chunk",
                       "rwkv_impl", "ssd_chunk", "mesh")
-    # Of those, the fields the moe family reads.
-    MOE_FIELDS = ("moe_impl", "moe_capacity", "moe_token_chunk")
 
     def check(self, family: str) -> None:
         """Raise on a field that ``family`` does not read set away from its
-        default: the MoE fields outside the moe family, and always
-        ``rwkv_impl``, ``ssd_chunk`` (families not ported yet) and
-        ``mesh`` (sharding). :func:`attention` checks ``attn_impl`` and
-        :func:`moe` ``moe_impl``."""
+        default: the MoE fields outside the moe family, ``rwkv_impl``
+        outside ssm, ``ssd_chunk`` outside hybrid, and always ``mesh``
+        (sharding). :func:`attention` checks ``attn_impl`` and :func:`moe`
+        ``moe_impl``."""
         check_family(family)
         default = RunConfig()
-        read = self.MOE_FIELDS if family == "moe" else ()
+        read = self.FAMILY_FIELDS.get(family, ())
         changed = [f for f in self.OTHER_FAMILIES if f not in read
                    and getattr(self, f) != getattr(default, f)]
         if changed:
             raise ValueError(f"RunConfig fields {changed} are not read by the "
                              f"{family} family, which keeps their defaults "
-                             f"(the MoE fields are the moe family's; "
-                             f"rwkv_impl and ssd_chunk wait for ROADMAP A18c, "
-                             f"mesh for A18d)")
+                             f"(the MoE fields are the moe family's, "
+                             f"rwkv_impl the ssm's, ssd_chunk the hybrid's; "
+                             f"mesh waits for ROADMAP A18d)")
 
 
 def _norm(cfg: ModelConfig, dtype, device) -> nn.Parameter:
@@ -89,11 +103,65 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, generator, dtype, device)
 
 
+class CrossLayer(nn.Module):
+    """A VLM cross layer: ln1, gated cross-attention ``xattn``, ln2,
+    SwiGLU ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln1 = _norm(cfg, dtype, device)
+        self.xattn = Attention(cfg, generator, dtype, device, cross=True)
+        self.ln2 = _norm(cfg, dtype, device)
+        self.mlp = MLP(cfg, generator, dtype, device)
+
+
+class DecoderBlock(nn.Module):
+    """A whisper decoder block: ln1, self-attention ``attn``, ln_x,
+    cross-attention ``xattn``, ln2, SwiGLU ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln1 = _norm(cfg, dtype, device)
+        self.attn = Attention(cfg, generator, dtype, device)
+        self.ln_x = _norm(cfg, dtype, device)
+        self.xattn = Attention(cfg, generator, dtype, device, cross=True)
+        self.ln2 = _norm(cfg, dtype, device)
+        self.mlp = MLP(cfg, generator, dtype, device)
+
+
+class MambaLayer(nn.Module):
+    """A hybrid layer: its norm ``ln`` and a Mamba2 block ``mamba``."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln = _norm(cfg, dtype, device)
+        self.mamba = ssm_mod.Mamba(cfg, generator, dtype, device)
+
+
+class RWKVBlock(nn.Module):
+    """An RWKV6 block: ln1, time mix ``tm``, ln2, channel mix ``cm``."""
+
+    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+        super().__init__()
+        self.ln1 = _norm(cfg, dtype, device)
+        self.tm = rwkv_mod.RWKVTimeMix(cfg, generator, dtype, device)
+        self.ln2 = _norm(cfg, dtype, device)
+        self.cm = rwkv_mod.RWKVChannelMix(cfg, generator, dtype, device)
+
+
+def _stack(n: int, make: Callable[[], nn.Module]) -> nn.ModuleList:
+    return nn.ModuleList(make() for _ in range(n))
+
+
 class Transformer(nn.Module):
-    """All weights of a dense or MoE model, initialised from ``generator``.
+    """All weights of a model of any family, initialised from
+    ``generator``.
 
     ``embed`` (Vpad, d), ``ln_f`` (d,), ``lm_head`` (d, Vpad) unless the
-    embeddings are tied, and ``blocks``, one :class:`Block` per layer.
+    embeddings are tied, and the family's layers under the reference's
+    names (module docstring). A grouped stack is a ``ModuleList`` of
+    ``ModuleList`` s, so ``mamba_groups.<g>.<j>`` is the reference's
+    ``mamba_groups`` leaf at ``[g, j]``.
     """
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -108,13 +176,49 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = weight(dense_init((d, v), generator, dtype,
                                              device))
-        self.blocks = nn.ModuleList(
-            Block(cfg, generator, dtype, device)
-            for _ in range(cfg.num_layers))
+
+        def make(cls):
+            return lambda: cls(cfg, generator, dtype, device)
+
+        if cfg.family in ("dense", "moe"):
+            self.blocks = _stack(cfg.num_layers, make(Block))
+        elif cfg.family == "vlm":
+            k = cfg.cross_attn_every
+            n_groups = cfg.num_layers // k
+            self.self_groups = _stack(
+                n_groups, lambda: _stack(k - 1, make(Block)))
+            self.cross_layers = _stack(n_groups, make(CrossLayer))
+        elif cfg.family == "hybrid":
+            k = cfg.attn_every
+            self.mamba_groups = _stack(
+                cfg.num_layers // k, lambda: _stack(k, make(MambaLayer)))
+            self.shared_attn = Block(cfg, generator, dtype, device)
+        elif cfg.family == "ssm":
+            self.blocks = _stack(cfg.num_layers, make(RWKVBlock))
+        else:                                           # encdec
+            self.encoder = _stack(cfg.encoder_layers, make(Block))
+            self.enc_ln_f = _norm(cfg, dtype, device)
+            self.blocks = _stack(cfg.num_layers, make(DecoderBlock))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+# The stub inputs the encdec and vlm families read, by batch key.
+STUB_INPUTS = {"encdec": "audio_embeds", "vlm": "image_embeds"}
+
+
+def check_stub_inputs(cfg: ModelConfig, audio_embeds: Optional[torch.Tensor],
+                      image_embeds: Optional[torch.Tensor]) -> None:
+    """Raise ``ValueError`` naming the batch key an encdec model
+    (``audio_embeds``, (B, encoder_seq, d)) or a VLM (``image_embeds``,
+    (B, num_image_tokens, d)) needs and was not given."""
+    key = STUB_INPUTS.get(cfg.family)
+    given = {"audio_embeds": audio_embeds, "image_embeds": image_embeds}
+    if key is not None and given[key] is None:
+        raise ValueError(f"the {cfg.family} family reads the stub input "
+                         f"{key!r}, which was not given")
 
 
 def ffn(p: Block, cfg: ModelConfig, rc: RunConfig,
@@ -129,10 +233,46 @@ def ffn(p: Block, cfg: ModelConfig, rc: RunConfig,
 
 
 def _dense_block(p: Block, cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, causal: bool = True
+                 ) -> torch.Tensor:
     x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
-                      positions, impl=rc.attn_impl).out
+                      positions, causal=causal, impl=rc.attn_impl).out
     return x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+def _cross_block(p: CrossLayer, cfg: ModelConfig, rc: RunConfig,
+                 x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
+    x = x + attention(p.xattn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), None,
+                      kv_x=kv_src, causal=False, impl=rc.attn_impl).out
+    return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+def _rwkv_block(p: RWKVBlock, cfg: ModelConfig, rc: RunConfig,
+                x: torch.Tensor, tm_prev, cm_prev, state):
+    z = rms_norm(x, p.ln1, cfg.norm_eps)
+    o, tm_carry, state = rwkv_mod.rwkv_time_mix(p.tm, cfg, z, tm_prev, state,
+                                                impl=rc.rwkv_impl)
+    x = x + o
+    z = rms_norm(x, p.ln2, cfg.norm_eps)
+    o, cm_carry = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z, cm_prev)
+    return x + o, tm_carry, cm_carry, state
+
+
+def _mamba_layer(p: MambaLayer, cfg: ModelConfig, rc: RunConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    o, _ = ssm_mod.mamba_block(p.mamba, cfg, rms_norm(x, p.ln, cfg.norm_eps),
+                               chunk=rc.ssd_chunk)
+    return x + o
+
+
+def _decoder_block(p: DecoderBlock, cfg: ModelConfig, rc: RunConfig,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   enc: torch.Tensor) -> torch.Tensor:
+    x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
+                      positions, causal=True, impl=rc.attn_impl).out
+    x = x + attention(p.xattn, cfg, rms_norm(x, p.ln_x, cfg.norm_eps), None,
+                      kv_x=enc, causal=False, impl=rc.attn_impl).out
+    return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
 
 
 def _maybe_remat(fn: Callable, rc: RunConfig) -> Callable:
@@ -143,15 +283,67 @@ def _maybe_remat(fn: Callable, rc: RunConfig) -> Callable:
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def encode(params: Transformer, cfg: ModelConfig, rc: RunConfig,
+           audio_embeds: torch.Tensor, impl: Optional[str] = None
+           ) -> torch.Tensor:
+    """Whisper's encoder over the stub frame embeddings (B, enc_seq, D):
+    non-causal self-attention with RoPE, SwiGLU, then ``enc_ln_f``.
+    ``impl`` overrides ``rc.attn_impl`` (serving passes ``pallas``)."""
+    run = rc if impl is None else dataclasses.replace(rc, attn_impl=impl)
+    x = audio_embeds
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for p in params.encoder:
+        x = _maybe_remat(lambda x_, p_=p: _dense_block(
+            p_, cfg, run, x_, positions, causal=False), rc)(x)
+    return rms_norm(x, params.enc_ln_f, cfg.norm_eps)
+
+
 def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward to final hidden states (B, S, D)."""
+            tokens: torch.Tensor, audio_embeds: Optional[torch.Tensor] = None,
+            image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward to final hidden states (B, S, D). An encdec
+    model reads ``audio_embeds``, a VLM ``image_embeds``
+    (:func:`check_stub_inputs`)."""
+    check_stub_inputs(cfg, audio_embeds, image_embeds)
     x = params.embed[tokens.long()]
+    b = x.shape[0]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
-    for p in params.blocks:
-        x = _maybe_remat(
-            lambda x_, p_=p: _dense_block(p_, cfg, rc, x_, positions), rc)(x)
+
+    def run(fn, *args):
+        return _maybe_remat(fn, rc)(*args)
+
+    if cfg.family in ("dense", "moe"):
+        for p in params.blocks:
+            x = run(lambda x_, p_=p: _dense_block(p_, cfg, rc, x_, positions),
+                    x)
+    elif cfg.family == "vlm":
+        img = image_embeds.to(x.dtype)
+        for group, pc in zip(params.self_groups, params.cross_layers):
+            for p in group:
+                x = run(lambda x_, p_=p: _dense_block(p_, cfg, rc, x_,
+                                                      positions), x)
+            x = run(lambda x_, p_=pc: _cross_block(p_, cfg, rc, x_, img), x)
+    elif cfg.family == "hybrid":
+        for group in params.mamba_groups:
+            for p in group:
+                x = run(lambda x_, p_=p: _mamba_layer(p_, cfg, rc, x_), x)
+            x = run(lambda x_: _dense_block(params.shared_attn, cfg, rc, x_,
+                                            positions), x)
+    elif cfg.family == "ssm":
+        h, n = rwkv_mod.rwkv_dims(cfg)
+        zero_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+        zero_state = torch.zeros((b, h, n, n), dtype=torch.float32,
+                                 device=x.device)
+        for p in params.blocks:
+            x = run(lambda x_, p_=p: _rwkv_block(
+                p_, cfg, rc, x_, zero_prev, zero_prev, zero_state)[0], x)
+    else:                                               # encdec
+        enc = encode(params, cfg, rc, audio_embeds)
+        for p in params.blocks:
+            x = run(lambda x_, p_=p: _decoder_block(p_, cfg, rc, x_,
+                                                    positions, enc), x)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -207,12 +399,17 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
 
 def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S))."""
-    hidden = forward(params, cfg, rc, batch["tokens"])
+    """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S);
+    ``audio_embeds`` or ``image_embeds`` where the family reads them)."""
+    hidden = forward(params, cfg, rc, batch["tokens"],
+                     audio_embeds=batch.get("audio_embeds"),
+                     image_embeds=batch.get("image_embeds"))
     return chunked_cross_entropy(hidden, lm_head(params, cfg),
                                  batch["labels"].long(), cfg.vocab_size,
                                  chunk=rc.loss_chunk)
 
 
-__all__ = ["Block", "Transformer", "RunConfig", "ffn", "forward", "lm_head",
-           "chunked_cross_entropy", "loss_fn"]
+__all__ = ["Block", "CrossLayer", "DecoderBlock", "MambaLayer", "RWKVBlock",
+           "Transformer", "RunConfig", "STUB_INPUTS", "check_stub_inputs",
+           "ffn", "encode", "forward", "lm_head", "chunked_cross_entropy",
+           "loss_fn"]

@@ -1,11 +1,15 @@
 """Carry the reference's params tree and train state to and from the port.
 
 The reference keeps its weights as a nested dict with the layers stacked
-along a leading axis (``params["blocks"]["attn"]["wq"]`` is ``(L, d,
+along leading axes (``params["blocks"]["attn"]["wq"]`` is ``(L, d,
 H·hd)``); the port keeps one module per layer. A port parameter named
-``blocks.<l>.<path>`` is the slice ``l`` of the reference leaf
-``blocks/<path>``; every other name is the leaf of the same path. Both
-sides use the ``x @ W`` orientation ``(d_in, d_out)``, so nothing is
+``<stack>.<l>.<path>`` is the slice ``l`` of the reference leaf
+``<stack>/<path>`` for the singly stacked ``blocks``, ``encoder`` and
+``cross_layers``, and ``<stack>.<g>.<j>.<path>`` the slice ``[g, j]`` for
+the grouped ``mamba_groups`` ((G, k, ...)) and ``self_groups``
+((G, k−1, ...)); every other name (``embed``, ``ln_f``, ``lm_head``,
+``enc_ln_f``, the hybrid's ``shared_attn``) is the leaf of the same path.
+Both sides use the ``x @ W`` orientation ``(d_in, d_out)``, so nothing is
 transposed, and a tied model has no ``lm_head`` leaf on either side (the
 head is ``embed.T``). An MoE block's leaves are ``blocks/moe/router``
 (``(L, d, E)``, f32 whatever the model's dtype, as in the reference) and
@@ -43,27 +47,38 @@ STATE_PREFIXES = {"params": ".params", "mu": ".opt/.mu", "nu": ".opt/.nu",
 STEP_KEY = ".opt/.step"
 
 
-def reference_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
-    """The reference leaf path of a port parameter name, and its layer
-    (None outside the stacked blocks)."""
+# Stacked module lists of the port, by the number of leading axes their
+# reference leaves carry.
+STACKED = {"blocks": 1, "encoder": 1, "cross_layers": 1, "mamba_groups": 2,
+           "self_groups": 2}
+
+Index = Tuple[int, ...]
+
+
+def reference_path(name: str) -> Tuple[Tuple[str, ...], Index]:
+    """The reference leaf path of a port parameter name, and its index
+    along the leaf's stacked axes (``()`` outside the stacks, ``(l,)`` in
+    a singly stacked list, ``(g, j)`` in a grouped one)."""
     parts = tuple(name.split("."))
-    if parts[0] == "blocks":
-        return ("blocks",) + parts[2:], int(parts[1])
-    return parts, None
+    depth = STACKED.get(parts[0], 0)
+    return ((parts[0],) + parts[1 + depth:],
+            tuple(int(i) for i in parts[1:1 + depth]))
+
+
+def _stacked_dims(indices) -> Index:
+    """The stacked axes' sizes that hold every index of ``indices``."""
+    return tuple(max(i[a] for i in indices) + 1
+                 for a in range(len(next(iter(indices)))))
 
 
 def stacked_shapes(model: Model) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
     """Shape of every reference leaf, as the port's parameters give it."""
-    shapes: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
-    counts: Dict[Tuple[str, ...], int] = {}
+    leaves: Dict[Tuple[str, ...], list] = {}
     for name, p in model.named_parameters():
-        path, layer = reference_path(name)
-        if layer is None:
-            shapes[path] = tuple(p.shape)
-        else:
-            counts[path] = counts.get(path, 0) + 1
-            shapes[path] = (counts[path],) + tuple(p.shape)
-    return shapes
+        path, idx = reference_path(name)
+        leaves.setdefault(path, []).append((idx, tuple(p.shape)))
+    return {path: _stacked_dims([i for i, _ in v]) + v[0][1]
+            for path, v in leaves.items()}
 
 
 def _leaf(tree: Mapping, path: Tuple[str, ...]) -> np.ndarray:
@@ -90,16 +105,14 @@ def from_reference_params(cfg: ModelConfig, params: Mapping,
     n_leaf = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            path, layer = reference_path(name)
-            value = _leaf(params, path)
-            if layer is not None:
-                value = value[layer]
+            path, idx = reference_path(name)
+            value = _leaf(params, path)[idx]
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: reference leaf {'/'.join(path)} "
                                  f"has shape {value.shape}, the port "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(value)))
-            n_leaf += layer is None or layer == 0
+            n_leaf += not any(idx)
     if n_leaf != _count_leaves(params):
         raise ValueError("the reference tree has leaves the port lacks")
     return model
@@ -130,13 +143,13 @@ def from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _reference_leaves(names: Iterable[str]):
-    """Reference leaf path → the port names of its layers, in order."""
+    """Reference leaf path → the port names of its slices, with their
+    indices, in order."""
     leaves: Dict[Tuple[str, ...], list] = {}
     for name in names:
-        path, layer = reference_path(name)
-        leaves.setdefault(path, []).append((layer, name))
-    return {path: [n for _, n in sorted(v, key=lambda x: x[0] or 0)]
-            for path, v in leaves.items()}
+        path, idx = reference_path(name)
+        leaves.setdefault(path, []).append((idx, name))
+    return {path: sorted(v) for path, v in leaves.items()}
 
 
 def stacked_arrays(prefix: str, tensors: Mapping[str, torch.Tensor]
@@ -144,11 +157,13 @@ def stacked_arrays(prefix: str, tensors: Mapping[str, torch.Tensor]
     """Per-layer port tensors as the reference's stacked leaves, keyed as
     its checkpoint keys them."""
     out = {}
-    for path, names in _reference_leaves(tensors).items():
-        arrs = [to_numpy(tensors[n]) for n in names]
-        layered = reference_path(names[0])[1] is not None
-        out[reference_key(prefix, path)] = np.stack(arrs) if layered \
-            else arrs[0]
+    for path, slices in _reference_leaves(tensors).items():
+        arrs = {idx: to_numpy(tensors[n]) for idx, n in slices}
+        first = arrs[slices[0][0]]
+        leaf = np.empty(_stacked_dims(arrs) + first.shape, first.dtype)
+        for idx, a in arrs.items():
+            leaf[idx] = a
+        out[reference_key(prefix, path)] = leaf
     return out
 
 
@@ -158,15 +173,14 @@ def load_stacked(prefix: str, arrays: Mapping[str, np.ndarray],
     into the port tensors ``tensors``, in place; raises on a missing key
     or a shape that does not match."""
     with torch.no_grad():
-        for path, names in _reference_leaves(tensors).items():
+        for path, slices in _reference_leaves(tensors).items():
             key = reference_key(prefix, path)
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key}")
             value = arrays[key]
-            for name in names:
+            for idx, name in slices:
                 t = tensors[name]
-                layer = reference_path(name)[1]
-                part = value if layer is None else value[layer]
+                part = value[idx]
                 if tuple(part.shape) != tuple(t.shape):
                     raise ValueError(f"leaf {key}: shape {value.shape} does "
                                      f"not hold {name} {tuple(t.shape)}")
@@ -219,4 +233,4 @@ __all__ = ["reference_path", "stacked_shapes", "from_reference_params",
            "reference_key", "to_numpy", "from_numpy", "stacked_arrays",
            "load_stacked", "train_state_arrays", "train_state_keys",
            "load_train_state_arrays",
-           "STATE_PREFIXES", "STEP_KEY"]
+           "STATE_PREFIXES", "STEP_KEY", "STACKED"]

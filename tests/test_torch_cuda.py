@@ -15,7 +15,8 @@ and returns from ``submit`` before the flush ends. B4 is held to its plain versi
 2e-2 (bf16), the reference's own kernel tolerances (sums in another
 order; a bf16 output may round one unit apart), at outputs in
 [4.5, 7.5] within 2e-2 of the plain version's f32 output, and the smoke LM's
-prefill on the card to the CPU's within 1e-4 (two f32 layers). The
+prefill on the card to the CPU's within 1e-4 (two f32 layers), each other
+family's too (decode within 1e-2, through bf16 carries). The
 autotuner's cases: every candidate launch plan of B1 and B2 at a staged
 and an l2 default equal to the plain version, ``sweep_bucket`` recording a
 winner no faster than its roofline model, ``bucket_impl`` under every
@@ -389,7 +390,7 @@ def test_cuda_flash_attention_edges(cuda, shape):
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == 1
-    assert fa.instance_launches == {(dtype, shape[5]): 1}
+    assert fa.instance_launches == {(dtype, shape[5], causal): 1}
     assert got.dtype == q.dtype and got.shape == q.shape
     tol = 2e-5 if dtype == "float32" else 2e-2
     assert torch.isfinite(got.float()).all()
@@ -466,6 +467,55 @@ def test_cuda_smoke_prefill_equals_cpu(cuda):
         want_kv = want_caches[name].float()
         diff = (caches[name].cpu().float() - want_kv).abs()
         assert (diff <= want_kv.abs() * 2.0**-7).all()
+
+
+# B4's launches in one prefill of each family's smoke model, by
+# (dtype, head dim, causal): the hybrid's shared block once a group,
+# whisper's encoder and cross-attention non-causal, the VLM's cross
+# layers non-causal, none for RWKV.
+FAMILY_B4 = {
+    "rwkv6-1.6b": {},
+    "zamba2-2.7b": {("float32", 16, True): 2},
+    "whisper-base": {("float32", 16, True): 2, ("float32", 16, False): 4},
+    "llama-3.2-vision-90b": {("float32", 16, True): 2,
+                             ("float32", 16, False): 2},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_B4))
+def test_cuda_family_prefill_and_decode_equal_cpu(cuda, arch):
+    """Each other family's smoke model on the card against the same
+    weights on the CPU, with seeded stub embeddings: prefill logits within
+    1e-4 (a few f32 layers), B4 at the family's attention layers only, and
+    three decode steps within 1e-2 (through bf16 carries, where a value
+    rounded the other way moves a logit by ~1e-3 at this size)."""
+    from repro_torch.models.transformer import STUB_INPUTS
+
+    cfg = get_smoke(arch)
+    cpu = build_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device="meta").to_empty(device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 21)))
+    stubs = {}
+    if cfg.family in STUB_INPUTS:
+        n = cfg.encoder_seq or cfg.num_image_tokens
+        stubs[STUB_INPUTS[cfg.family]] = torch.from_numpy(
+            rng.standard_normal((2, n, cfg.d_model), np.float32))
+    want, cc = cpu.prefill(tokens, cache_len=32, **stubs)
+    fa.reset_launch_counts()
+    got, cg = card.prefill(tokens.to(cuda), cache_len=32,
+                           **{k: v.to(cuda) for k, v in stubs.items()})
+    torch.cuda.synchronize()
+    assert fa.instance_launches == FAMILY_B4[arch]
+    assert (got.cpu() - want).abs().max().item() < 1e-4
+    for step in range(3):
+        tok = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2,)))
+        want, cc = cpu.decode_step(tok, cc, 21 + step)
+        got, cg = card.decode_step(tok.to(cuda), cg, 21 + step)
+        assert (got.cpu() - want).abs().max().item() < 1e-2
 
 
 def _clustered(n, rng):

@@ -255,8 +255,10 @@ def test_configs_match_reference_and_refuse_unported():
             assert getattr(port, field) == getattr(ref, field), field
         assert port.padded_vocab == ref.padded_vocab
         assert port.param_count() == ref.param_count()
-    with pytest.raises(NotImplementedError, match="A18"):
-        get_config("whisper-base")
+    whisper, ref_whisper = get_config("whisper-base"), ref_get_config(
+        "whisper-base")
+    for field in whisper.__dataclass_fields__:
+        assert getattr(whisper, field) == getattr(ref_whisper, field), field
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
