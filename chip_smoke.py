@@ -83,7 +83,8 @@ Phases, in order; any failure raises and exits non-zero:
    graph, key and method, 64 equal to the CPU (precluster against
    ``precluster_host``), requests/s, flush wall p50/p99, cache hits and
    single-flight riders; the same trace on the sync executor (walls A B
-   against async) and under ``policy='coalesce'``; 256 requests under
+   against async) and its first 1,024 under ``policy='coalesce'``; 256
+   requests under
    ``objective='minmax'`` on the async and the sharded (one device)
    executors, against the batch path; ``submit``'s return time on the
    R = 2¹⁵ pivot bucket; the card's busy share over a traced pass;
@@ -117,7 +118,7 @@ Phases, in order; any failure raises and exits non-zero:
    of the augmenting matching equal, the approx/exact cost ratio); (f)
    ``cliques`` on 8,000 disjoint cliques plus noise; walls per method;
 8. the near-duplicate dedup path (``repro_torch.data.dedup``) on a
-   synthetic corpus of 20,000 documents (the reference test's recipe:
+   synthetic corpus of 10,000 documents (the reference test's recipe:
    lengths 64–256, 40 % near-duplicates at 5 % mutation, ``--seed``),
    threshold 0.45, best-of-4, each call's launch counts zeroed just before
    and read just after: (a) ``dedup_corpus_batched`` (B1 and B2 must
@@ -140,12 +141,12 @@ Phases, in order; any failure raises and exits non-zero:
    (``launch/roofline.py`` ``ell_kernel_roofline``); per bucket and tier
    the winner, the default's and the winner's device time (CUDA events);
    a second cache loaded from the file makes no sweep and hits every
-   entry; phase 5's trace served untuned and tuned (sync executor, cost
-   policy, A B B A), every tuned result equal to the untuned one, the
+   entry; the first 1,024 requests of phase 5's trace served untuned and
+   tuned (sync executor, cost policy, A B B A), every tuned result equal to the untuned one, the
    program keys carrying the tuned plans, requests/s of each pass;
 10. the training path (``repro_torch.launch.train``): (a) ``run`` at
    smollm-135m's full width (30 layers, d = 576, vocabulary 49,152, f32
-   weights and AdamW state), 20 steps of 8 sequences of 1,024 tokens,
+   weights and AdamW state), 10 steps of 8 sequences of 1,024 tokens,
    checkpoints every 5, the dedup stage on: its wall, median step ms,
    tokens/s, peak memory, B3's launches in the dedup stage and none of B4
    (training takes chunked attention; counts zeroed just before, read just
@@ -153,7 +154,7 @@ Phases, in order; any failure raises and exits non-zero:
    the stage gave it (k = 4, n = 300) and the stage's kept documents,
    labels and batches held to the CPU's; the cost of deterministic mode (step ms with and without it,
    A B B A) and the card's busy share over 3 traced steps; (b)
-   ``fail_at=10`` then ``resume``: losses 10–19 equal (a)'s bit for bit;
+   ``fail_at=5`` then ``resume``: losses 5–9 equal (a)'s bit for bit;
    (c) 2 full-width steps at ``accum_steps=2`` with compression, sequences
    of 128, 4 a step, each from the CPU's state: loss within 1e-5 and
    grad_norm within 1e-3 of the CPU's; (d) B4 refuses q, k, v that require
@@ -169,7 +170,8 @@ Phases, in order; any failure raises and exits non-zero:
    read just after: every request served, B4 launched layers × prefills
    times at the config's (f32, head dim) instance and at no other; build
    seconds, weight bytes, peak memory, prefill and decode tokens/s, the
-   wall, and for olmoe the dropped assignments per prefill; (b) the
+   wall, and for olmoe (served under deterministic algorithms, its logits
+   kept for phase 13) the dropped assignments per prefill; (b) the
    config cut to 2 layers at its published widths, drawn on the card and
    copied to the CPU: a short prompt and a 512-token one, each with 8
    teacher-forced decode steps, logits within the config's stated
@@ -183,7 +185,8 @@ Phases, in order; any failure raises and exits non-zero:
    spills of that instance;
 12. the other model families (``repro_torch.configs``), each at its
    published widths with f32 weights drawn on the card from ``--seed`` and
-   freed before the next: (a) rwkv6-1.6b (24 layers, attention-free, the
+   freed before the next: (a) rwkv6-1.6b (12 of its 24 layers,
+   attention-free, the
    exact RWKV scan in prefill as the serving launcher sets it) and
    zamba2-2.7b (54 Mamba2 layers, the shared attention block after every
    6, SSD chunks of 16) through ``ContinuousBatcher`` and ``serve_all``
@@ -212,8 +215,29 @@ Phases, in order; any failure raises and exits non-zero:
    and ptxas's registers and spills; (f) ``rwkv_chunked`` against
    ``rwkv_scan`` on rwkv6's first layer at its longest served prompt: the
    largest difference and each one's wall;
-13. summary: a ``families``, an ``lm_configs``, a ``training`` and a
-   ``tuning`` JSON line, the card line, a ``kernels`` JSON line
+13. sharded serving (``repro_torch.models.{sharding,parallel}``,
+   ``launch/mesh.py``): olmoe-1b-7b at its published widths and full
+   depth, f32 weights drawn from ``--seed``, phase 11's 8 requests through
+   ``ContinuousBatcher``; (a) under deterministic algorithms, as phase 11
+   serves olmoe, one NCCL rank on a (data 1, model 1) mesh with
+   ``moe_impl`` 'sort' (its logits equal phase 11's bit for bit)
+   and 'ep_local' (``moe_ep_local``, its own capacity); collective calls
+   and bytes by kind per prefill and per decode step, tokens/s, peak
+   memory; (b) two ranks spawned on the one card on (data 1, model 2) in
+   a gloo group (NCCL refuses two ranks on one device; gloo carries the
+   CUDA tensors through host memory, and the walls are not a two-card
+   figure), each holding its half of the weights, every rank on the same
+   requests in lockstep (a rank whose greedy tokens differ from rank 0's
+   raises), B4 16 times a prefill a rank at (f32, 128) on 8 q and 8 kv
+   heads; each impl against (a)'s: prefill logits within 1e-4, decode
+   within 5e-2 (phase 11's), greedy tokens equal where (a)'s top-2 margin
+   exceeds twice that, router logits within 1e-4 / 5e-2 and the experts equal at every
+   clear decision, drops equal; the drops of 'ep_local' against 'sort'
+   a prefill; (c) B4 at the local-head instance (1, 8, 8, S, S, 128) at
+   the longest served prompt, timed with its bound, SDPA's time and
+   ptxas's registers and spills;
+14. summary: a ``sharding``, a ``families``, an ``lm_configs``, a
+   ``training`` and a ``tuning`` JSON line, the card line, a ``kernels`` JSON line
    (B1, B2, B3 as the fused kernel and as the window mode, B4, the
    agreement kernel with its route, replicas and both bounds; B1 also on
    the agreement graphs, B4 also at head dims 80 and 160 off the path and
@@ -221,7 +245,8 @@ Phases, in order; any failure raises and exits non-zero:
    and B2's main-path rows also with their launches on the dedup path and
    the tuned winner beside the default; B3's with its launches and its
    check in the training launcher's dedup stage; B4 also at each phase-12
-   instance with its launches there), and last
+   instance with its launches there, and at phase 13's local-head
+   instance with its launches on a rank), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -231,12 +256,15 @@ result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 from contextlib import nullcontext
 from pathlib import Path
 
@@ -1083,6 +1111,9 @@ def breakdown(graphs, lams, card, nm, n_trace=256):
 SERVE_MAX_BATCH = 64
 SERVE_MAX_WAIT = 0.02        # seconds an admitted request may wait
 SERVE_SUBSET = 256           # requests of the minmax and sharded engines
+# Requests of the trace under the coalescing policy (a prefix: the
+# smoke's time is short).
+SERVE_COALESCE_REQUESTS = 1024
 SERVE_CPU_CHECKS = 64
 # Layers of a serving pass, by function, for its host-time split.
 SERVE_LAYERS = ("admit", "plan_graph", "graph_fingerprint",
@@ -1459,20 +1490,22 @@ def serving_phase(dev, card, seed, bench, ag_base=None):
                              policy="cost")
         check_served(o, rows, want, f"{name}/cost")
         abba[name].append(w)
-    o, eng, w = serve_pass(rows, graphs, lams, dev, executor="sync",
-                           policy="coalesce")
+    n_co = min(len(rows), SERVE_COALESCE_REQUESTS)
+    o, eng, w = serve_pass(rows, graphs, lams, dev, pick=range(n_co),
+                           executor="sync", policy="coalesce")
     check_served(o, rows, want, "sync/coalesce")
     rates = {name: [len(rows) / t for t in ts] for name, ts in abba.items()}
     record.update(walls_ab_s=abba, requests_per_s_ab=rates,
-                  coalesce_sync_s=w,
-                  coalesce_sync_requests_per_s=len(rows) / w,
+                  coalesce_sync_s=w, coalesce_requests=n_co,
+                  coalesce_sync_requests_per_s=n_co / w,
                   coalesce_stolen=eng.stats.stolen_requests)
     print(f"      wall A B on the same trace (cost policy): async "
           f"{abba['async'][0]:.3f} s = {rates['async'][0]:.1f} requests/s, "
           f"sync {abba['sync'][0]:.3f} s = {rates['sync'][0]:.1f} "
           "requests/s; "
-          f"sync/coalesce {w:.3f} s = {len(rows) / w:.1f} requests/s "
-          f"({eng.stats.stolen_requests} stolen requests)  [{card}]")
+          f"sync/coalesce on the first {n_co} {w:.3f} s = {n_co / w:.1f} "
+          f"requests/s ({eng.stats.stolen_requests} stolen requests)  "
+          f"[{card}]")
     # The minmax objective and the sharded executor on a subset.
     pick = sorted(rng.choice(len(rows), SERVE_SUBSET, replace=False))
     want_mm = batch_results(rows, graphs, lams, dev, "minmax", pick)
@@ -1580,15 +1613,17 @@ class TimedModel:
         return out
 
 
-def serving_path(model, requests, cache_len, card, slots=4, label="(e)"):
+def serving_path(model, requests, cache_len, card, slots=4, label="(e)",
+                 timed=None):
     """Serve ``requests`` through ``ContinuousBatcher`` and ``serve_all``
-    with every launch count zeroed just before and read just after."""
+    with every launch count zeroed just before and read just after;
+    ``timed`` (a :class:`TimedModel` of ``model``) records the calls."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import neighbor_min as nm
     from repro_torch.serve.batching import ContinuousBatcher
     from repro_torch.serve.engine import serve_all
 
-    timed = TimedModel(model)
+    timed = timed or TimedModel(model)
     batcher = ContinuousBatcher(timed, max_slots=slots, cache_len=cache_len)
     nm.reset_launch_counts()
     fa.reset_launch_counts()
@@ -1863,8 +1898,9 @@ class RouterLog:
     sync), and with ``logits`` also the f32 router logits and the experts
     chosen."""
 
-    def __init__(self, capacity_factor, logits=False):
+    def __init__(self, capacity_factor, logits=False, capacity=None):
         self.factor, self.logits = capacity_factor, logits
+        self.capacity = capacity      # mlp._capacity when None
         self.calls: list = []
 
     def __enter__(self):
@@ -1878,7 +1914,8 @@ class RouterLog:
 
     def _route(self, p, x, cfg):
         gates, idx = self._inner(p, x, cfg)
-        c = self._mlp._capacity(x.shape[0], cfg, self.factor)
+        c = (self.capacity or self._mlp._capacity)(x.shape[0], cfg,
+                                                  self.factor)
         counts = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts)
         call = {"tokens": x.shape[0],
                 "dropped": (counts - c).clamp(min=0).sum()}
@@ -2039,8 +2076,16 @@ def lm_config_phase(arch, dev, card, seed, abench, rng, ptxas):
           f"{build_s:.2f} s")
     reqs = serving_requests(np.random.default_rng([seed, 11]),
                             cfg.vocab_size, SERVE_CACHE_LEN)
-    with (RouterLog(model.rc.moe_capacity) if moe else nullcontext()) as log:
-        rec = serving_path(model, reqs, SERVE_CACHE_LEN, card)
+    # olmoe serves under deterministic algorithms (its combine adds with
+    # atomics otherwise): phase 13 holds its sharded logits to these.
+    from repro_torch.launch.train import deterministic
+    calls = CallLog(model, reqs) if arch == SHARD_ARCH else None
+    with (RouterLog(model.rc.moe_capacity) if moe else nullcontext()) as log, \
+            (deterministic(dev) if calls else nullcontext()):
+        rec = serving_path(model, reqs, SERVE_CACHE_LEN, card, timed=calls)
+    if calls is not None:
+        rec["served_logits"], rec["deterministic"] = calls.logits, True
+        calls.model = None
     peak = torch.cuda.max_memory_allocated()
     inst = f"float32/{cfg.head_dim}"
     if dev.type == "cuda" and rec["b4_instance_launches"] != {
@@ -2135,6 +2180,9 @@ FAMILY_DIRECT = ("whisper-base", "llama-3.2-vision-90b")
 # reference's param_count); at its published widths cut to 10 layers (2
 # groups of 4 self layers and a cross layer) it holds 39.7 GiB.
 VLM_SERVED_LAYERS = 10
+# rwkv6-1.6b serves 12 of its 24 layers: its prefill runs the exact scan,
+# a few host launches a token and layer, and the smoke's time is short.
+RWKV_SERVED_LAYERS = 12
 # The CPU comparison (d): each family's cut, drawn on the card and copied
 # to the host (None: the whole model), and its long prompt.
 FAMILY_CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-2.7b": 6, "whisper-base": None,
@@ -2289,6 +2337,8 @@ def _family_cfg(arch):
     cfg = get_config(arch)
     if arch == "llama-3.2-vision-90b":
         cfg = dataclasses.replace(cfg, num_layers=VLM_SERVED_LAYERS)
+    if arch == "rwkv6-1.6b":
+        cfg = dataclasses.replace(cfg, num_layers=RWKV_SERVED_LAYERS)
     return cfg
 
 
@@ -2717,7 +2767,7 @@ def dist_world_one(dev, card, rng, rec):
 # The near-duplicate dedup path (phase 8): the reference test's recipe
 # (tests/test_data.py:29-36) at a corpus a pipeline stage runs; its
 # quality, O(n²) host Python, on a smaller corpus of the same recipe.
-DEDUP_DOCS = 20_000
+DEDUP_DOCS = 10_000
 DEDUP_QUALITY_DOCS = 2_000
 DEDUP_RECIPE = dict(doc_len=(64, 256), dup_fraction=0.4, mutate_p=0.05)
 DEDUP_THRESHOLD = 0.45
@@ -2954,6 +3004,11 @@ def dedup_phase(dev, card, seed):
     return rec
 
 
+# Requests of phase 5's trace served untuned and tuned, A B B A, in
+# phase 9 (a prefix: the smoke's time is short).
+AUTOTUNE_ABBA_REQUESTS = 1024
+
+
 def autotune_phase(dev, card, seed):
     """(9) ``ClusterBatcher.warmup(autotune=True)`` over phase 5's graphs
     (one sample graph a bucket its trace flushes), the cache in a
@@ -3045,12 +3100,14 @@ def autotune_phase(dev, card, seed):
             if not (second.sweeps == 0 and second.stale == 0
                     and second.hits == len(second) == len(tuned)):
                 raise AssertionError(f"(9) second cache {rec['second']}")
-            # Phase 5's trace, untuned and tuned, A B B A.
+            # Phase 5's trace (its first AUTOTUNE_ABBA_REQUESTS), untuned
+            # and tuned, A B B A.
             walls: dict = {"untuned": [], "tuned": []}
             results: dict = {}
+            abba = rows[:AUTOTUNE_ABBA_REQUESTS]
             for name in ("untuned", "tuned", "tuned", "untuned"):
                 at.set_tuning_cache(second if name == "tuned" else untuned)
-                out, _, wall = serve_pass(rows, graphs, lams, dev,
+                out, _, wall = serve_pass(abba, graphs, lams, dev,
                                           executor="sync", policy="cost")
                 walls[name].append(wall)
                 results.setdefault(name, out)
@@ -3072,7 +3129,7 @@ def autotune_phase(dev, card, seed):
     finally:
         at.set_tuning_cache(prev)
         ex.set_program_cache_capacity(prev_capacity)
-    rates = {name: [len(rows) / w for w in ws] for name, ws in walls.items()}
+    rates = {name: [len(abba) / w for w in ws] for name, ws in walls.items()}
     wins: dict = {}
     for r in sweeps:
         wins.setdefault(r["kernel"], {}).setdefault(r["winner"], 0)
@@ -3084,7 +3141,7 @@ def autotune_phase(dev, card, seed):
     print(f"  (9b) a second TuningCache from the file: {second.sweeps} "
           f"sweeps, {second.hits} hits of {len(second)} entries, "
           f"{second.stale} stale")
-    print(f"  (9c) phase 5's trace ({len(rows)} requests), sync/cost, A B B "
+    print(f"  (9c) phase 5's trace ({len(abba)} requests), sync/cost, A B B "
           f"A: untuned {rates['untuned'][0]:.1f} / {rates['untuned'][1]:.1f}"
           f", tuned {rates['tuned'][0]:.1f} / {rates['tuned'][1]:.1f} "
           f"requests/s; every tuned result equals the untuned one; "
@@ -3097,10 +3154,10 @@ def autotune_phase(dev, card, seed):
 # launcher's full-size settings (chunked attention, loss chunks of 256), 8
 # sequences of 1,024 tokens a step.
 TRAIN_ARCH = "smollm-135m"
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10
 TRAIN_SEQ = 1024
 TRAIN_BATCH = 8
-TRAIN_FAIL_AT = 10
+TRAIN_FAIL_AT = 5
 TRAIN_TRACED_STEPS = 3
 TRAIN_TIMED_STEPS = 3
 # (c) against the CPU: the CPU tests' tolerances (tests/test_torch_train.py):
@@ -3486,6 +3543,472 @@ def train_cpu_check(dev, card, seed):
     return out
 
 
+# Phase 13: olmoe-1b-7b at its published widths and full depth on a
+# (data, model) device mesh over torch.distributed, served through the
+# ContinuousBatcher on the same 8 requests as phase 11 ([seed, 11]), with
+# 'sort' (every rank routes every token as one device would, each runs its
+# experts, one all-reduce) and 'ep_local' (moe_ep_local: a dispatch local
+# to each data shard, its own capacity). (a) one NCCL rank on a (1, 1)
+# mesh, under deterministic algorithms (the experts' combine adds with
+# atomics otherwise, and two unsharded runs then differ by ~2e-4): 'sort'
+# against phase 11's unsharded logits, served so too (bit for bit, or
+# within SHARD_EQUAL_TOL); (b) two ranks on the one card on (1, 2), in a gloo
+# group (NCCL refuses two ranks on one device; gloo carries the CUDA
+# tensors through host memory), each holding its half, against (a) impl
+# for impl: prefill logits within 1e-4 (f32 weights, the row-parallel sums
+# in another order), decode within phase 11's decode limit, 5e-2
+# (CUT_TOL): the caches are bf16, a half-width product or a split sum
+# rounds a key or value to the other side of a bf16 unit, and over 16
+# layers that moved a decode logit by up to 0.0248 (PERF.md §6), more
+# than 1e-2; greedy tokens equal where (a)'s top-2 margin
+# exceeds twice the limit; routing as phase 11 holds it, with
+# SHARD_ROUTER_TOL; (c) B4 at the local-head instance.
+SHARD_ARCH = "olmoe-1b-7b"
+SHARD_IMPLS = ("sort", "ep_local")
+SHARD_MODEL = 2
+SHARD_TOL = {"prefill": 1e-4, "decode": 5e-2}
+# Router logits of (b) against (a): prefill as phase 11's; decode over 16
+# layers, where each layer's bf16 cache roundings carry into the next
+# router's input (phase 11's 1e-2 covers two layers).
+SHARD_ROUTER_TOL = {"prefill": 1e-4, "decode": 5e-2}
+SHARD_EQUAL_TOL = 1e-6
+
+
+class CallLog(TimedModel):
+    """A :class:`TimedModel` that also keeps, for each request by uid, the
+    logits of its prefill and of each decode step (host copies), the
+    router calls of each (with ``log``, a :class:`RouterLog`) and the
+    collectives each call issued (``models.parallel.counts``)."""
+
+    def __init__(self, model, requests, log=None):
+        super().__init__(model)
+        self.uid_of = {tuple(int(t) for t in r.prompt): r.uid
+                       for r in requests}
+        self.owner: dict = {}
+        self.logits: dict = {}
+        self.router: dict = {}
+        self.collectives: dict = {"prefill": [], "decode": []}
+        self.log = log
+
+    def _keep(self, uid, kind, logits, before):
+        from repro_torch.models import parallel
+
+        self.logits.setdefault(uid, []).append(logits[0].detach().cpu())
+        if self.log is not None:
+            self.router.setdefault(uid, []).append([
+                {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in c.items()} for c in self.log.take()])
+        after = parallel.snapshot()
+        self.collectives[kind].append({
+            k: {f: after[k][f] - before[k][f] for f in after[k]}
+            for k in after})
+
+    def prefill(self, tokens, cache_len, **stubs):
+        from repro_torch.models import parallel
+
+        before = parallel.snapshot()
+        logits, caches = super().prefill(tokens, cache_len, **stubs)
+        uid = self.uid_of[tuple(tokens[0].tolist())]
+        self.owner[id(caches)] = uid
+        self._keep(uid, "prefill", logits, before)
+        return logits, caches
+
+    def decode_step(self, tok, caches, pos):
+        from repro_torch.models import parallel
+
+        before = parallel.snapshot()
+        logits, caches = super().decode_step(tok, caches, pos)
+        self._keep(self.owner[id(caches)], "decode", logits, before)
+        return logits, caches
+
+    def per_call(self) -> dict:
+        """Mean collective calls and bytes by kind, per prefill and per
+        decode step."""
+        out = {}
+        for kind, rows in self.collectives.items():
+            n = max(1, len(rows))
+            out[kind] = {k: {f: sum(r[k][f] for r in rows) / n
+                             for f in ("calls", "bytes")}
+                         for k in (rows[0] if rows else {})}
+        return out
+
+
+def _shard_model(cfg, dev, seed, impl, axes):
+    """olmoe on the mesh ``axes`` of the initialised group, drawn as
+    phase 11 draws it, with ``impl``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import resolve_plan
+    from repro_torch.models.transformer import RunConfig
+
+    mesh = make_mesh(axes)
+    plan = resolve_plan(cfg, None, axes)
+    return build_model(cfg, device=dev, dtype=torch.float32,
+                       generator=torch.Generator(dev).manual_seed(seed),
+                       plan=plan, mesh=mesh,
+                       rc=RunConfig(moe_impl=impl, mesh=mesh))
+
+
+def _shard_serve(model, reqs, card, label):
+    """Serve ``reqs`` with routing and per-call records; B4 checked at
+    olmoe's (f32, 128) instance, once a layer and prefill."""
+    from repro_torch.models import mlp, parallel
+
+    cap = mlp.ep_local_capacity if model.rc.moe_impl == "ep_local" else None
+    cuda = model.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(model.device)
+    parallel.reset_counts()
+    with RouterLog(model.rc.moe_capacity, logits=True,
+                   capacity=cap) as log:
+        calls = CallLog(model, reqs, log)
+        rec = serving_path(model, reqs, SERVE_CACHE_LEN, card, timed=calls,
+                           label=label)
+    cfg = model.cfg
+    want = {b4_key("float32", cfg.head_dim): cfg.num_layers * rec["prefills"]}
+    if cuda and rec["b4_instance_launches"] != want:
+        raise AssertionError(f"{label} B4 launched "
+                             f"{rec['b4_instance_launches']}, not {want}")
+    rec["peak_bytes"] = (torch.cuda.max_memory_allocated(model.device)
+                         if cuda else None)
+    rec["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    rec["collectives_per_call"] = calls.per_call()
+    rec["collectives"] = parallel.snapshot()
+    rec["dropped_per_prefill"] = [
+        sum(int(c["dropped"]) for c in steps[0])
+        for _, steps in sorted(calls.router.items())]
+    for kind, row in rec["collectives_per_call"].items():
+        print(f"      per {kind} call: " + ", ".join(
+            f"{k} {v['calls']:.1f} calls / {v['bytes']:.0f} bytes"
+            for k, v in row.items()))
+    print(f"      weights {rec['weight_bytes']} bytes on this rank, peak "
+          f"{rec['peak_bytes']} bytes allocated; dropped assignments per "
+          f"prefill {rec['dropped_per_prefill']}")
+    return rec, calls
+
+
+def _shard_routing(a_calls, b_calls, k, row, tol, where):
+    """One call's routing in (b) against (a), layer by layer, as
+    :func:`_routing_agrees` holds it, except that each failure is added
+    to ``row["violations"]`` (so one run reports them all) and each
+    layer's router error is kept. Returns False where the experts differ
+    at an unclear decision: the two contexts part there."""
+    if len(a_calls) != len(b_calls):
+        row["violations"].append(f"{where}: {len(b_calls)} router calls, "
+                                 f"not {len(a_calls)}")
+        return False
+    kind = "prefill" if a_calls and a_calls[0]["tokens"] > 1 else "decode"
+    errs = row["router_err_by_layer"][kind]
+    for layer, (c, g) in enumerate(zip(a_calls, b_calls)):
+        err = float((g["logits"] - c["logits"]).abs().max())
+        if len(errs) <= layer:
+            errs.append(0.0)
+        errs[layer] = max(errs[layer], err)
+        row[f"router_err_{kind}"] = max(row[f"router_err_{kind}"], err)
+        if not err <= tol:
+            row["violations"].append(f"{where} layer {layer}: router logits "
+                                     f"{err:.3g} apart (tolerance {tol})")
+        top = c["logits"].sort(dim=-1, descending=True).values
+        clear = top[:, k - 1] - top[:, k] > 2 * tol
+        same = (c["experts"].sort(dim=-1).values
+                == g["experts"].sort(dim=-1).values).all(dim=-1)
+        if bool((clear & ~same).any()):
+            row["violations"].append(f"{where} layer {layer}: a clear "
+                                     f"routing decision differs")
+        row["decisions"] += int(clear.numel())
+        row["unclear"] += int((~clear).sum())
+        row["dropped_one_rank"] += int(c["dropped"])
+        row["dropped_two_ranks"] += int(g["dropped"])
+        if bool(clear.all()) and int(c["dropped"]) != int(g["dropped"]):
+            row["violations"].append(f"{where} layer {layer}: "
+                                     f"{int(g['dropped'])} dropped, "
+                                     f"{int(c['dropped'])} on one rank")
+        if not bool(same.all()):
+            return False
+    return True
+
+
+def _compare_served(a, b, cfg, label):
+    """(b) against (a), request by request: logits within SHARD_TOL, the
+    greedy token where (a)'s margin is clear, routing within
+    SHARD_ROUTER_TOL (:func:`_shard_routing`). A request whose experts or
+    token differ at an unclear decision is compared up to there. Every
+    failure lands in ``row["violations"]``."""
+    vocab = cfg.vocab_size
+    row = {"prefill_err": 0.0, "decode_err": 0.0, "router_err_prefill": 0.0,
+           "router_err_decode": 0.0, "decisions": 0, "unclear": 0,
+           "dropped_one_rank": 0, "dropped_two_ranks": 0, "parted": {},
+           "steps": 0, "violations": [],
+           "router_err_by_layer": {"prefill": [], "decode": []}}
+    for uid, steps in sorted(a.logits.items()):
+        for step, (la, lb) in enumerate(zip(steps, b.logits[uid])):
+            kind = "prefill" if step == 0 else "decode"
+            where = f"{label} request {uid} step {step}"
+            if not _shard_routing(a.router[uid][step], b.router[uid][step],
+                                  cfg.experts_per_tok, row,
+                                  SHARD_ROUTER_TOL[kind], where):
+                row["parted"][uid] = step
+                break
+            err = float((la - lb).abs().max())
+            if not err <= SHARD_TOL[kind]:
+                row["violations"].append(f"{where}: logits {err:.3g} apart "
+                                         f"(tolerance {SHARD_TOL[kind]})")
+            row[f"{kind}_err"] = max(row[f"{kind}_err"], err)
+            row["steps"] += 1
+            top2 = torch.topk(la[:vocab], 2).values
+            tok_a, tok_b = int(la[:vocab].argmax()), int(lb[:vocab].argmax())
+            if tok_a != tok_b:
+                if float(top2[0] - top2[1]) > 2 * SHARD_TOL[kind]:
+                    row["violations"].append(f"{where}: greedy token "
+                                             f"differs at a clear margin")
+                row["parted"][uid] = step
+                break
+    return row
+
+
+def _fresh(reqs):
+    """``reqs`` made unserved again, to serve once more."""
+    for r in reqs:
+        r.out_tokens.clear()
+        r.done = False
+    return reqs
+
+
+def _shard_rank(rank, world, store, out_dir, seed, card, cfg, dev_type,
+                backend):
+    """(13b) one rank of ``world`` in a ``backend`` group, on card
+    ``rank`` modulo the cards there are (``dev_type`` 'cuda'): serve
+    ``cfg`` with each impl and save the records for the parent."""
+    import torch.distributed as dist
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The ranks share the host's cores: each spinning thread pool of its
+    # own would starve the other's.
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dev = torch.device(dev_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    heads: set = set()
+    inner = attention.flash_attention
+
+    def b4(q, k, v, causal):
+        heads.add((q.shape[1], k.shape[1]))
+        return inner(q, k, v, causal=causal)
+
+    attention.flash_attention = b4
+    try:
+        reqs = serving_requests(np.random.default_rng([seed, 11]),
+                                cfg.vocab_size, SERVE_CACHE_LEN)
+        for impl in SHARD_IMPLS:
+            heads.clear()
+            t0 = time.perf_counter()
+            model = _shard_model(cfg, dev, seed, impl,
+                                 {"data": 1, "model": world})
+            sync(dev)
+            build_s = time.perf_counter() - t0
+            # Rank 0 prints for both.
+            with (nullcontext() if rank == 0 else
+                  contextlib.redirect_stdout(io.StringIO())):
+                rec, calls = _shard_serve(model, _fresh(reqs), card,
+                                          f"(13b) {impl}")
+            tokens = {r.uid: list(r.out_tokens) for r in reqs}
+            every = [None] * world
+            dist.all_gather_object(every, tokens)
+            if any(t != every[0] for t in every):
+                raise AssertionError(f"(13b) rank {rank}: greedy tokens "
+                                     f"differ from rank 0's")
+            want = {(cfg.num_heads // world, cfg.num_kv_heads // world)}
+            if heads != want:
+                raise AssertionError(f"(13b) B4 ran on {heads} (q, kv) "
+                                     f"heads, not {want}")
+            rec.update(build_s=build_s, heads=sorted(heads))
+            torch.save({"rec": rec, "logits": calls.logits,
+                        "router": calls.router},
+                       os.path.join(out_dir, f"{impl}_{rank}.pt"))
+            del model, calls
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        attention.flash_attention = inner
+        dist.destroy_process_group()
+
+
+def shard_serving(dev, card, seed, cfg, unsharded=None, ranks=SHARD_MODEL,
+                  backend="gloo"):
+    """(13a) and (13b) for ``cfg``: (a) one rank, ``sort`` against
+    ``unsharded`` (logits by request, served under deterministic
+    algorithms; served here first when None), then ``ep_local``; (b)
+    ``ranks`` spawned ranks in a ``backend`` group on a (data 1, model
+    ``ranks``) mesh, each impl against (a)'s. Returns the record."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import build_model
+
+    reqs = serving_requests(np.random.default_rng([seed, 11]),
+                            cfg.vocab_size, SERVE_CACHE_LEN)
+    out: dict = {"one_rank": {}, "sharded": {}, "against_one_rank": {},
+                 "ranks": ranks, "backend": backend}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    one: dict = {}
+    if unsharded is None:
+        with deterministic(dev):
+            model = build_model(
+                cfg, device=dev, dtype=torch.float32,
+                generator=torch.Generator(dev).manual_seed(seed))
+            calls = CallLog(model, _fresh(reqs))
+            out["unsharded"] = serving_path(model, reqs, SERVE_CACHE_LEN,
+                                            card, timed=calls,
+                                            label="(13a) unsharded")
+        unsharded = calls.logits
+        del model, calls
+    # (a) One rank (NCCL on the card), mesh (data 1, model 1).
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(str(tmp / "store1"), 1),
+                            rank=0, world_size=1)
+    try:
+        print(f"  (13a) {cfg.name}, one rank, backend "
+              f"{dist.get_backend()}, mesh (data 1, model 1), "
+              f"deterministic algorithms")
+        for impl in SHARD_IMPLS:
+            model = _shard_model(cfg, dev, seed, impl,
+                                 {"data": 1, "model": 1})
+            with deterministic(dev):
+                rec, calls = _shard_serve(model, _fresh(reqs), card,
+                                          f"(13a) {impl}")
+            if impl == "sort":
+                diff = max(float((x - y).abs().max())
+                           for uid, steps in calls.logits.items()
+                           for x, y in zip(steps, unsharded[uid]))
+                same = all(torch.equal(x, y)
+                           for uid, steps in calls.logits.items()
+                           for x, y in zip(steps, unsharded[uid]))
+                if not (diff <= SHARD_EQUAL_TOL and all(
+                        len(calls.logits[u]) == len(unsharded[u])
+                        for u in unsharded)):
+                    raise AssertionError(f"(13a) sort on (1, 1) is {diff} "
+                                         f"from the unsharded logits")
+                rec.update(bit_equal=same, max_diff_unsharded=diff)
+                print(f"      'sort' against the unsharded logits: "
+                      f"{'bit for bit' if same else f'{diff:.3g} apart'}")
+            out["one_rank"][impl] = rec
+            one[impl] = calls
+            calls.model = None
+            del model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) The sharded ranks, mesh (data 1, model ranks).
+    where = ("one card, backend gloo (CUDA tensors through host memory; "
+             "NCCL refuses two ranks on one device); the walls below are "
+             "processes sharing one card, not a multi-card figure"
+             if backend == "gloo" else f"one card each, backend {backend}")
+    print(f"  (13b) {cfg.name}, {ranks} ranks on {where}; mesh (data 1, "
+          f"model {ranks})")
+    t0 = time.perf_counter()
+    mp.spawn(_shard_rank, args=(ranks, str(tmp / "store2"), str(tmp), seed,
+                                card, cfg, dev.type, backend),
+             nprocs=ranks, join=True)
+    out["spawn_s"] = time.perf_counter() - t0
+    for impl in SHARD_IMPLS:
+        by_rank = [torch.load(tmp / f"{impl}_{r}.pt") for r in range(ranks)]
+        for other in by_rank[1:]:
+            if any(not torch.equal(x, y) for uid, s in
+                   by_rank[0]["logits"].items()
+                   for x, y in zip(s, other["logits"][uid])):
+                raise AssertionError(f"(13b) {impl}: the ranks' logits "
+                                     "differ")
+        b = types.SimpleNamespace(logits=by_rank[0]["logits"],
+                                  router=by_rank[0]["router"])
+        row = _compare_served(one[impl], b, cfg, f"(13b) {impl}")
+        rec = by_rank[0]["rec"]
+        rec["weight_bytes_by_rank"] = [r["rec"]["weight_bytes"]
+                                       for r in by_rank]
+        rec["peak_bytes_by_rank"] = [r["rec"]["peak_bytes"]
+                                     for r in by_rank]
+        out["sharded"][impl] = rec
+        out["against_one_rank"][impl] = row
+        by_layer = {k: [f"{e:.2g}" for e in v]
+                    for k, v in row["router_err_by_layer"].items()}
+        print(f"      router logits apart by layer: {by_layer}")
+        print(f"  (13b) {impl}: weights by rank "
+              f"{rec['weight_bytes_by_rank']} bytes, peaks "
+              f"{rec['peak_bytes_by_rank']}; built in {rec['build_s']:.2f} "
+              f"s; B4 {rec['b4_instance_launches']} on (q, kv) heads "
+              f"{rec['heads']}; against one rank: prefill logits "
+              f"{row['prefill_err']:.3g} apart (tol {SHARD_TOL['prefill']}),"
+              f" decode {row['decode_err']:.3g} (tol "
+              f"{SHARD_TOL['decode']}) over {row['steps']} calls; router "
+              f"{row['router_err_prefill']:.3g} / "
+              f"{row['router_err_decode']:.3g}, {row['unclear']} of "
+              f"{row['decisions']} decisions unclear, dropped "
+              f"{row['dropped_two_ranks']} / {row['dropped_one_rank']} on "
+              f"one rank; parted {row['parted']}  [{card}]")
+    bad = [v for impl in SHARD_IMPLS
+           for v in out["against_one_rank"][impl]["violations"]]
+    if bad:
+        raise AssertionError(f"(13b) {len(bad)} checks failed: {bad[:20]}")
+    drops = {impl: out["sharded"][impl]["dropped_per_prefill"]
+             for impl in SHARD_IMPLS}
+    out["dropped_per_prefill"] = drops
+    out["longest_prompt"] = max(len(r.prompt) for r in reqs)
+    print(f"  (13b) dropped assignments per prefill: 'ep_local' "
+          f"{drops['ep_local']} against 'sort' {drops['sort']}")
+    return out
+
+
+def shard_phase(dev, card, seed, abench, rng, ptxas, unsharded):
+    """Phase 13 (module comment above); ``unsharded`` holds phase 11's
+    olmoe logits by request. Returns the record and the ``kernels``
+    row."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SHARD_ARCH)
+    out = shard_serving(dev, card, seed, cfg, unsharded)
+
+    # (c) B4 at the local-head instance, the longest served prompt.
+    s_max = out["longest_prompt"]
+    shape = (1, cfg.num_heads // SHARD_MODEL,
+             cfg.num_kv_heads // SHARD_MODEL, s_max, s_max, cfg.head_dim,
+             True, "float32")
+    row = abench.run(shape, rng)
+    print_b4_row(row)
+    regs = _b4_ptxas(ptxas, cfg.head_dim)
+    if regs is not None:
+        print(f"      {regs['function']}: {regs['registers']} registers, "
+              f"stack / spill store / spill load {regs['stack']} / "
+              f"{regs['spill_stores']} / {regs['spill_loads']} B")
+    launches = {impl: out["sharded"][impl]["launches"]["flash_attention"]
+                for impl in SHARD_IMPLS}
+    kernel = {
+        "name": "flash_attention", "route": "cuda", "source": B4_SOURCE,
+        "replaces": B4_REPLACES, "launches": launches["sort"],
+        "launches_by_impl": launches,
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": row["shape"], "call_ms": row["call_ms"],
+        "bounds": row["bounds"],
+        "variant": f"fa_forward_kernel<float32, {cfg.head_dim}>, "
+                   f"{SHARD_ARCH} prefill on model {SHARD_MODEL}: "
+                   f"{shape[1]}/{shape[2]} local heads a rank",
+        "ptxas": regs}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (13) {out['phase_s']:.1f} s in all  [{card}]")
+    return out, kernel
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3838,6 +4361,7 @@ def main() -> int:
     # its launches on that config's path.
     lm = lm_configs_phase(dev, card, args.seed, abench, rng,
                           record["ptxas"].get("flash_attention", []))
+    served = lm["configs"][SHARD_ARCH].pop("served_logits")
     record["lm_configs"] = lm
     kernels.extend(lm["kernels"])
     # 12. The other model families; each new B4 row with its instance's
@@ -3846,6 +4370,13 @@ def main() -> int:
                          record["ptxas"].get("flash_attention", []))
     record["families"] = fam
     kernels.extend(fam["kernels"])
+    # 13. Sharded serving of olmoe-1b-7b on (data, model) meshes; B4's row
+    # at the local-head instance with its launches on a rank's path.
+    shard, shard_kernel = shard_phase(
+        dev, card, args.seed, abench, rng,
+        record["ptxas"].get("flash_attention", []), served)
+    record["sharding"] = shard
+    kernels.append(shard_kernel)
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -3853,7 +4384,24 @@ def main() -> int:
         args.out.write_text(json.dumps(record, indent=1, default=lambda o:
                                        o.item()))
 
-    # 13. Summary.
+    # 14. Summary.
+    print(json.dumps({"sharding": {
+        "phase_s": shard["phase_s"], "spawn_s": shard["spawn_s"],
+        "dropped_per_prefill": shard["dropped_per_prefill"],
+        **{f"one_rank_{impl}": {k: rec[k] for k in (
+            "wall_s", "prefill_tokens_per_s", "decode_tokens_per_s",
+            "peak_bytes", "weight_bytes", "collectives_per_call",
+            "bit_equal", "max_diff_unsharded") if k in rec}
+           for impl, rec in shard["one_rank"].items()},
+        **{f"two_ranks_{impl}": {
+            **{k: rec[k] for k in (
+                "wall_s", "prefill_tokens_per_s", "decode_tokens_per_s",
+                "peak_bytes_by_rank", "weight_bytes_by_rank",
+                "collectives_per_call", "b4_instance_launches", "heads")},
+            **{k: shard["against_one_rank"][impl][k] for k in (
+                "prefill_err", "decode_err", "router_err_prefill",
+                "router_err_decode", "unclear", "decisions", "parted")}}
+           for impl, rec in shard["sharded"].items()}}}))
     print(json.dumps({"families": {
         arch: {**{k: rec[k] for k in (
             "layers", "build_s", "weight_bytes", "peak_bytes", "wall_s",

@@ -3,15 +3,15 @@
 The port of ``repro/configs/base.py``'s :class:`ModelConfig`: the dense,
 mixture-of-experts, SSM (rwkv6), hybrid (zamba2), encoder-decoder
 (whisper) and VLM (llama-3.2-vision) families, with the reference's
-fields, defaults and analytic :meth:`ModelConfig.param_count`. The
-reference's shape grid (``ShapeConfig``, ``SHAPES``, ``supports_shape``)
-waits for the dry run (ROADMAP A18e).
+fields, defaults and analytic :meth:`ModelConfig.param_count`, and the
+reference's shape grid (``ShapeConfig``, ``SHAPES``, ``supports_shape``),
+which ``models/sharding.py`` ``resolve_plan`` reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -154,4 +154,29 @@ class ModelConfig:
         return total + blocks
 
 
-__all__ = ["ModelConfig", "check_family", "FAMILIES"]
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """long_500k needs sub-quadratic sequence mixing."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch — 512k dense decode is "
+                       "quadratic; skipped per assignment")
+    return True, ""
+
+
+__all__ = ["ModelConfig", "check_family", "FAMILIES", "ShapeConfig",
+           "SHAPES", "supports_shape"]

@@ -29,11 +29,24 @@ mask. Unlike the reference, which returns updated caches functionally,
 :func:`decode_attention` writes the new key and value into the caches it
 is given, in place; cross-attention decode reads a cache it does not
 write (``update_cache``, ``rope_on_q`` and ``mask_to_pos`` off).
+
+On a mesh (``layout``, ``models/parallel.py``) the weights are the
+rank's blocks: ``wq``, ``wk``, ``wv`` column-parallel on the rank's heads
+(their d_model rows gathered over data first, ZeRO-3), ``wo``
+row-parallel, followed by one all-reduce over the heads' axes. Where the
+q heads are sharded and the kv heads are not, the rank's q heads read the
+kv group of their *global* index (:func:`_kv_for_heads`). Where neither
+divides the model axis, attention is replicated. A decode cache whose
+sequence is split over mesh axes (``seq_axes``) is written only by the
+rank that holds ``pos``, and the softmax combines the ranks' partials:
+the max, then the sum of exponentials, then the weighted values, each an
+all-reduce over those axes; q heads sharded on one of them are gathered
+first and the rank keeps its own heads after the combine.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -42,7 +55,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ref import NEG_INF
-from .common import apply_rope, dense_init, head_rms_norm, linear, weight
+from .common import (apply_rope, dense_init, head_rms_norm, linear,
+                     linear_rows, weight)
 
 
 class Attention(nn.Module):
@@ -55,15 +69,22 @@ class Attention(nn.Module):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        self.wq = weight(dense_init((d, nq), generator, dtype, device))
-        self.wk = weight(dense_init((d, nkv), generator, dtype, device))
-        self.wv = weight(dense_init((d, nkv), generator, dtype, device))
-        self.wo = weight(dense_init((nq, d), generator, dtype, device))
+        self.wq = weight(dense_init((d, nq), generator, dtype, device),
+                         ("embed", "heads"))
+        self.wk = weight(dense_init((d, nkv), generator, dtype, device),
+                         ("embed", "kv"))
+        self.wv = weight(dense_init((d, nkv), generator, dtype, device),
+                         ("embed", "kv"))
+        self.wo = weight(dense_init((nq, d), generator, dtype, device),
+                         ("heads", "embed"))
         if cfg.qk_norm and not cross:
-            self.q_norm = weight(torch.ones(hd, dtype=dtype, device=device))
-            self.k_norm = weight(torch.ones(hd, dtype=dtype, device=device))
+            self.q_norm = weight(torch.ones(hd, dtype=dtype, device=device),
+                                 (None,))
+            self.k_norm = weight(torch.ones(hd, dtype=dtype, device=device),
+                                 (None,))
         if cross:
-            self.gate = weight(torch.zeros(1, dtype=dtype, device=device))
+            self.gate = weight(torch.zeros(1, dtype=dtype, device=device),
+                               (None,))
 
 
 def init_attention(cfg: ModelConfig, generator, dtype, device,
@@ -79,16 +100,21 @@ class AttnOutput(NamedTuple):
 
 def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
              positions: Optional[torch.Tensor],
-             kv_x: Optional[torch.Tensor] = None, rope: bool = True):
+             kv_x: Optional[torch.Tensor] = None, rope: bool = True,
+             layout=None):
     """q (B,S,H,hd) from x and k, v (B,Sk,KH,hd) from ``kv_x`` (x when
     None), qk-normed where the layer has the scales, and rotated when
-    ``rope`` and the model is not attention-free."""
+    ``rope`` and the model is not attention-free. On a mesh, H and KH are
+    the rank's heads."""
     b, s, _ = x.shape
     src = x if kv_x is None else kv_x
-    hd, h, kh = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q = linear(x, p.wq).reshape(b, s, h, hd)
-    k = linear(src, p.wk).reshape(b, src.shape[1], kh, hd)
-    v = linear(src, p.wv).reshape(b, src.shape[1], kh, hd)
+    hd = cfg.head_dim
+    wq, wk, wv = p.wq, p.wk, p.wv
+    if layout is not None:
+        wq, wk, wv = (layout.whole(w, 0) for w in (wq, wk, wv))
+    q = linear(x, wq).reshape(b, s, -1, hd)
+    k = linear(src, wk).reshape(b, src.shape[1], -1, hd)
+    v = linear(src, wv).reshape(b, src.shape[1], -1, hd)
     if cfg.qk_norm and hasattr(p, "q_norm"):
         q = head_rms_norm(q, p.q_norm, cfg.norm_eps)
         k = head_rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -96,6 +122,37 @@ def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                  layout, n_q: int):
+    """The kv heads (dim 2) that the rank's ``n_q`` q heads read. Without
+    a mesh, or with q and kv heads split alike (or neither), k and v as
+    given. Where the q heads are split and the kv heads are whole, q head
+    ``h`` of global index ``first + h`` reads kv head ``(first + h) // G``:
+    a contiguous range of kv heads where each takes the same number of
+    the rank's q heads, else one kv head a q head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    if layout is None or k.shape[2] * g == n_q:
+        return k, v
+    first = layout.index(layout.axes("heads")) * n_q
+    idx = (first + torch.arange(n_q)) // g
+    lo, n = int(idx[0]), int(idx[-1]) - int(idx[0]) + 1
+    if n_q % n == 0 and torch.equal(idx, lo + torch.arange(n_q) // (n_q // n)):
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = idx.to(k.device)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out(p: Attention, o: torch.Tensor, layout) -> torch.Tensor:
+    """The output projection of o (B,S,H·hd), row-parallel on a mesh
+    where the heads are split, then the gate."""
+    if layout is None:
+        return _gated(p, linear(o, p.wo))
+    heads = layout.axes("heads")
+    wo = layout.whole(p.wo, 1)
+    out = linear_rows(o, wo, layout, heads) if heads else linear(o, wo)
+    return _gated(p, out)
 
 
 def _gated(p: Attention, out: torch.Tensor) -> torch.Tensor:
@@ -206,7 +263,7 @@ def _pallas_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
               positions: Optional[torch.Tensor], *, impl: str,
               kv_x: Optional[torch.Tensor] = None, causal: bool = True,
-              return_kv: bool = False) -> AttnOutput:
+              return_kv: bool = False, layout=None) -> AttnOutput:
     """Full-sequence attention (prefill, training, encoder, cross).
     x (B,S,D); ``kv_x`` (B,Sk,D) makes it cross-attention, without RoPE
     (``positions`` may then be None).
@@ -214,23 +271,26 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``impl`` is one of :data:`IMPLS`, and every caller names it: serving
     takes ``pallas`` (kernel B4), training its ``RunConfig.attn_impl``
     (``chunked`` by default, as in the reference). Causal rows are offset
-    by ``Sk - S``, as the reference offsets them.
+    by ``Sk - S``, as the reference offsets them. On a mesh the returned
+    k and v hold the rank's kv heads.
     """
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} is not one of {IMPLS}")
     b, s, _ = x.shape
-    q, k, v = _project(p, cfg, x, positions, kv_x, rope=kv_x is None)
-    qg = q.reshape(b, s, cfg.num_kv_heads,
-                   cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = _project(p, cfg, x, positions, kv_x, rope=kv_x is None,
+                       layout=layout)
+    n_q = q.shape[2]
+    ks, vs = _kv_for_heads(k, v, cfg, layout, n_q)
+    qg = q.reshape(b, s, ks.shape[2], n_q // ks.shape[2], cfg.head_dim)
     row_offset = k.shape[1] - s if causal else 0
     if impl == "naive":
-        o = naive_attention(qg, k, v, causal, row_offset)
+        o = naive_attention(qg, ks, vs, causal, row_offset)
     elif impl == "chunked":
-        o = chunked_attention(qg, k, v, causal, row_offset)
+        o = chunked_attention(qg, ks, vs, causal, row_offset)
     else:
-        o = _pallas_attention(qg, k, v, causal)
-    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return AttnOutput(out=_gated(p, linear(o, p.wo)),
+        o = _pallas_attention(qg, ks, vs, causal)
+    o = o.reshape(b, s, n_q * cfg.head_dim)
+    return AttnOutput(out=_out(p, o, layout),
                       k=k if return_kv else None,
                       v=v if return_kv else None)
 
@@ -238,7 +298,8 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                      pos: int, cache_k: torch.Tensor, cache_v: torch.Tensor,
                      *, update_cache: bool = True, rope_on_q: bool = True,
-                     mask_to_pos: bool = True) -> AttnOutput:
+                     mask_to_pos: bool = True, layout=None,
+                     seq_axes: Sequence[str] = ()) -> AttnOutput:
     """One-token decode. x (B,1,D); cache_k/v (B,S,KH,hd); pos an int.
 
     Writes the new key and value at ``pos`` of ``cache_k``/``cache_v`` in
@@ -249,27 +310,55 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     query goes to the cache dtype before the score product and the
     probabilities before the value product, and both products accumulate
     in f32 (operands widened to f32, which holds bf16 products exactly).
+
+    On a mesh the caches are the rank's blocks; ``seq_axes`` are the mesh
+    axes their sequence dim is split over (``decoding.kv_spec``), along
+    which the softmax is combined (module docstring).
     """
     b = x.shape[0]
-    hd, h, kh = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project(p, cfg, x, posv, rope=rope_on_q)
-    if update_cache:
-        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    q, k_new, v_new = _project(p, cfg, x, posv, rope=rope_on_q,
+                               layout=layout)
+    n_q = q.shape[2]
+    split = layout is not None and layout.span(seq_axes) > 1
+    s_loc = cache_k.shape[1]
+    lo = layout.index(seq_axes) * s_loc if split else 0
+    if update_cache and lo <= pos < lo + s_loc:
+        cache_k[:, pos - lo] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos - lo] = v_new[:, 0].to(cache_v.dtype)
 
-    qg = q.reshape(b, 1, kh, h // kh, hd)
+    heads = layout.axes("heads") if split else ()
+    gather_q = bool(heads) and set(heads) <= set(seq_axes)
+    if gather_q:
+        q = layout.all_gather(q, heads, 2)
+        ks, vs = cache_k, cache_v
+    else:
+        ks, vs = _kv_for_heads(cache_k, cache_v, cfg, layout, n_q)
+    kh = ks.shape[2]
+    qg = q.reshape(b, 1, kh, q.shape[2] // kh, hd)
     scale = 1.0 / (hd ** 0.5)
     s = torch.einsum("bqkgd,bskd->bkgqs",
-                     (qg * scale).to(cache_k.dtype).float(), cache_k.float())
+                     (qg * scale).to(ks.dtype).float(), ks.float())
     if mask_to_pos:
-        keep = torch.arange(cache_k.shape[1], device=x.device) <= pos
+        keep = lo + torch.arange(s_loc, device=x.device) <= pos
         s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    probs = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", probs.to(cache_v.dtype).float(),
-                     cache_v.float())
-    o = o.to(x.dtype).reshape(b, 1, h * hd)
-    return AttnOutput(out=_gated(p, linear(o, p.wo)), k=cache_k, v=cache_v)
+    if split:
+        m = layout.all_reduce(s.amax(dim=-1, keepdim=True), seq_axes, "max")
+        e = torch.exp(s - m)
+        probs = e / layout.all_reduce(e.sum(dim=-1, keepdim=True), seq_axes)
+    else:
+        probs = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs.to(vs.dtype).float(),
+                     vs.float())
+    if split:
+        o = layout.all_reduce(o, seq_axes)
+    o = o.to(x.dtype).reshape(b, 1, -1, hd)
+    if gather_q:
+        first = layout.index(heads) * n_q
+        o = o[:, :, first:first + n_q]
+    return AttnOutput(out=_out(p, o.reshape(b, 1, n_q * hd), layout),
+                      k=cache_k, v=cache_v)
 
 
 __all__ = ["Attention", "init_attention", "attention", "decode_attention",

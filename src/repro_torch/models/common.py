@@ -1,24 +1,78 @@
-"""Shared model building blocks: init, norms, RoPE, linears.
+"""Shared model building blocks: weights with their logical axes, norms,
+RoPE, linears, and the sharding helpers.
 
 The port of ``repro/models/common.py``. Weights keep the reference's
-``x @ W`` orientation, ``(d_in, d_out)``. The reference's sharding helpers
-(``Pm``, ``split_params``, ``constrain``, ``set_matmul_reduce_dtype``) wait
-for the sharded port (ROADMAP A18).
+``x @ W`` orientation, ``(d_in, d_out)``. Where the reference pairs each
+leaf with its ``PartitionSpec`` (``Pm``), each weight here records its
+*logical* axes once, where it is made (:func:`weight`), and
+:func:`param_specs` resolves them against a plan, keyed like
+``state_dict`` (the spec half of ``split_params``). While a sharded model
+is drawn (:func:`drawing_blocks`), :func:`weight` keeps only the rank's
+block of each leaf. :func:`constrain` keeps the reference's call sites and
+checks a local shape against the plan; :func:`set_matmul_reduce_dtype`
+sets the dtype in which row-parallel partial products are all-reduced
+(:func:`linear_rows`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+# The layout whose blocks weight() keeps while a sharded model is drawn.
+_DRAWING = None
 
-def weight(t: torch.Tensor) -> nn.Parameter:
-    """A weight, built frozen for serving; ``train.train_step.
-    init_train_state`` turns a model's weights trainable."""
-    return nn.Parameter(t, requires_grad=False)
+
+@contextlib.contextmanager
+def drawing_blocks(layout):
+    """While active, :func:`weight` keeps ``layout``'s block of each leaf
+    it is given and the whole leaf is freed: a sharded build never holds
+    more than one whole leaf."""
+    global _DRAWING
+    prev, _DRAWING = _DRAWING, layout
+    try:
+        yield
+    finally:
+        _DRAWING = prev
+
+
+def weight(t: torch.Tensor, axes: Tuple[Optional[str], ...]) -> nn.Parameter:
+    """A weight with its logical axes (one name or None a dim, the names
+    of ``models/sharding.py``), built frozen for serving;
+    ``train.train_step.init_train_state`` turns a model's weights
+    trainable. Under :func:`drawing_blocks` it holds the rank's block."""
+    axes = tuple(axes)
+    if len(axes) != t.dim():
+        raise ValueError(f"axes {axes} for a {t.dim()}-d weight")
+    if _DRAWING is not None:
+        t = _DRAWING.local(t, _DRAWING.plan.P(*axes))
+    p = nn.Parameter(t, requires_grad=False)
+    p.axes = axes
+    return p
+
+
+def param_axes(model: nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Every weight's logical axes by its ``state_dict`` name."""
+    return {name: p.axes for name, p in model.named_parameters()}
+
+
+def attach_axes(model: nn.Module, axes: Dict[str, tuple]) -> None:
+    """Record ``axes`` (by name) on the model's weights again: a module
+    moved with ``to_empty`` or ``to`` holds new parameter objects."""
+    for name, p in model.named_parameters():
+        p.axes = axes[name]
+
+
+def param_specs(model: nn.Module, plan) -> Dict[str, tuple]:
+    """Each weight's spec under ``plan``, keyed like ``state_dict``. A
+    port weight is one layer of the reference's stacked leaf, whose spec
+    is this one with ``None`` for each stacked axis
+    (``weights.reference_specs``)."""
+    return {name: plan.P(*p.axes) for name, p in model.named_parameters()}
 
 
 def dense_init(shape: Sequence[int], generator: Optional[torch.Generator],
@@ -78,14 +132,67 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# Cross-shard matmul reduction precision. 'f32': partial products are
+# all-reduced in f32 (the default); 'bf16': a bf16 input's products come
+# out in bf16, so a row-parallel all-reduce moves half the bytes.
+_MATMUL_REDUCE_DTYPE = "f32"
+
+
+def set_matmul_reduce_dtype(mode: str) -> None:
+    global _MATMUL_REDUCE_DTYPE
+    if mode not in ("f32", "bf16"):
+        raise ValueError(f"matmul reduce dtype {mode!r} is not f32 or bf16")
+    _MATMUL_REDUCE_DTYPE = mode
+
+
+def reduce_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a product of ``dtype`` operands comes out in."""
+    if _MATMUL_REDUCE_DTYPE == "bf16" and dtype == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
+
+
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with f32 accumulation, cast back to ``x.dtype``.
+    """``x @ w`` with f32 accumulation, in the reduce dtype, cast back to
+    ``x.dtype``.
 
     bf16 operands are widened to f32 first: their products are exact in
     f32, so this is the reference's bf16 dot with an f32 accumulator.
     """
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(
+        reduce_dtype(x.dtype)).to(x.dtype)
 
 
-__all__ = ["weight", "dense_init", "rms_norm", "head_rms_norm",
-           "rope_frequencies", "apply_rope", "linear"]
+def linear_rows(x: torch.Tensor, w: torch.Tensor, layout,
+                axes: Sequence[str]) -> torch.Tensor:
+    """A row-parallel :func:`linear`: ``w`` holds this rank's block of
+    rows (and ``x`` the matching columns); the partial products are
+    all-reduced over ``axes`` in the reduce dtype, then cast to
+    ``x.dtype``. Without a layout it is :func:`linear`."""
+    part = torch.matmul(x.float(), w.float()).to(reduce_dtype(x.dtype))
+    if layout is not None:
+        part = layout.all_reduce(part, axes)
+    return part.to(x.dtype)
+
+
+def constrain(x: torch.Tensor, layout, *logical) -> torch.Tensor:
+    """The reference's activation constraint: a no-op without a mesh; on
+    one, ``x`` must have one dim per logical name and, where the name is
+    ``batch``, the rank's rows of the call's batch
+    (``layout.batch_rows``). Returns ``x``."""
+    if layout is None:
+        return x
+    if x.dim() != len(logical):
+        raise ValueError(f"a {x.dim()}-d tensor constrained as {logical}")
+    for dim, name in enumerate(logical):
+        if name == "batch" and x.shape[dim] != layout.batch_rows:
+            raise ValueError(f"dim {dim} holds {x.shape[dim]} rows; the "
+                             f"rank's block of the batch is "
+                             f"{layout.batch_rows}")
+    return x
+
+
+__all__ = ["weight", "param_axes", "attach_axes", "param_specs",
+           "drawing_blocks", "dense_init", "rms_norm", "head_rms_norm",
+           "rope_frequencies", "apply_rope", "set_matmul_reduce_dtype",
+           "reduce_dtype", "linear", "linear_rows", "constrain"]

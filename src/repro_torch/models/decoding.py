@@ -26,6 +26,16 @@ it runs RWKV by the exact scan whatever ``rc.rwkv_impl`` says, and
 cross-attention reads the cached cross K/V without writing, rotating or
 masking. An MoE block runs ``moe`` with the ``RunConfig``'s MoE fields
 over the call's B·S tokens. Both run under ``torch.no_grad()``.
+
+:func:`cache_specs` gives every family's cache specs under a plan, the
+reference's ``init_caches`` specs: a KV cache leaf is sharded by
+:func:`kv_spec` (batch, then kv heads, then the sequence on whatever
+``seq_kv`` axes those two left free). On a mesh (a dense or moe model
+built with a plan, ``Transformer.layout``) the entry points take the whole
+batch on every rank, keep the rank's rows, hold the rank's block of every
+cache, and return the whole logits on every rank; a cache whose sequence
+is split is written, in prefill and in decode, only where the rank holds
+the position.
 """
 
 from __future__ import annotations
@@ -38,56 +48,137 @@ from ..configs.base import ModelConfig, check_family
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .attention import attention, decode_attention
-from .common import rms_norm
+from .common import constrain, rms_norm
 from .mlp import mlp
-from .transformer import (RunConfig, Transformer, check_stub_inputs, encode,
-                          ffn, lm_head)
+from .sharding import ShardingPlan, entry_axes
+from .transformer import (RunConfig, Transformer, check_shardable,
+                          check_stub_inputs, embed_tokens, encode, ffn,
+                          lm_head)
 
 
-def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
-                dtype: torch.dtype = torch.bfloat16,
-                device=None) -> Dict[str, torch.Tensor]:
-    """Empty (zero) caches sized for ``seq_len`` decode."""
+def kv_spec(plan: ShardingPlan, ndim: int) -> tuple:
+    """A KV cache leaf's spec, (…, batch, seq, kv heads, hd), with
+    conflict-free axes: a mesh axis is used once, so where the kv heads
+    and ``seq_kv`` both want 'model' (olmoe's 16 kv heads) the heads win
+    and the sequence drops that axis; the batch's axes are taken first."""
+    batch_ax, kv_ax = plan.axes.get("batch"), plan.axes.get("kv")
+    used = set(entry_axes(batch_ax)) | set(entry_axes(kv_ax))
+    seq = tuple(a for a in entry_axes(plan.axes.get("seq_kv"))
+                if a not in used)
+    seq_ax = seq if len(seq) > 1 else (seq[0] if seq else None)
+    return (None,) * (ndim - 4) + (batch_ax, seq_ax, kv_ax, None)
+
+
+def cache_specs(cfg: ModelConfig, plan: Optional[ShardingPlan] = None
+                ) -> Dict[str, tuple]:
+    """Every cache leaf's spec under ``plan``, by name: the spec tree of
+    the reference's ``Model.abstract_caches``."""
+    check_family(cfg.family)
+    plan = plan or ShardingPlan.null()
+    cross = plan.P(None, "batch", None, "kv", None)
+    if cfg.family in ("dense", "moe"):
+        return {"k": kv_spec(plan, 5), "v": kv_spec(plan, 5)}
+    if cfg.family == "vlm":
+        return {"k": kv_spec(plan, 6), "v": kv_spec(plan, 6), "xk": cross,
+                "xv": cross}
+    if cfg.family == "hybrid":
+        return {"conv": plan.P(None, None, "batch", None, "ff"),
+                "ssm": plan.P(None, None, "batch", None, None, None),
+                "ak": kv_spec(plan, 5), "av": kv_spec(plan, 5)}
+    if cfg.family == "ssm":
+        carry = plan.P(None, "batch", None, None)
+        return {"tm_prev": carry, "cm_prev": carry,
+                "state": plan.P(None, "batch", None, None, None)}
+    return {"k": kv_spec(plan, 5), "v": kv_spec(plan, 5), "xk": cross,
+            "xv": cross}                                       # encdec
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int
+                 ) -> Dict[str, tuple]:
+    """Every cache leaf's whole shape, by name, and whether it is f32
+    (the recurrent states) rather than the cache dtype."""
     check_family(cfg.family)
     kh, hd = cfg.num_kv_heads, cfg.head_dim
-
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
-
     if cfg.family in ("dense", "moe"):
         shp = (cfg.num_layers, batch, seq_len, kh, hd)
-        return {"k": zeros(*shp), "v": zeros(*shp)}
+        return {"k": (shp, False), "v": (shp, False)}
     if cfg.family == "vlm":
         g = cfg.num_layers // cfg.cross_attn_every
         shp = (g, cfg.cross_attn_every - 1, batch, seq_len, kh, hd)
         xshp = (g, batch, cfg.num_image_tokens, kh, hd)
-        return {"k": zeros(*shp), "v": zeros(*shp), "xk": zeros(*xshp),
-                "xv": zeros(*xshp)}
+        return {"k": (shp, False), "v": (shp, False), "xk": (xshp, False),
+                "xv": (xshp, False)}
     if cfg.family == "hybrid":
         g, k = cfg.num_layers // cfg.attn_every, cfg.attn_every
         d_in, h, n = ssm_mod.ssm_dims(cfg)
         shp = (g, batch, seq_len, kh, hd)
-        return {"conv": zeros(g, k, batch, ssm_mod.CONV_K - 1, d_in),
-                "ssm": zeros(g, k, batch, h, n, cfg.ssm_head_dim,
-                             dt=torch.float32),
-                "ak": zeros(*shp), "av": zeros(*shp)}
+        return {"conv": ((g, k, batch, ssm_mod.CONV_K - 1, d_in), False),
+                "ssm": ((g, k, batch, h, n, cfg.ssm_head_dim), True),
+                "ak": (shp, False), "av": (shp, False)}
     if cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
         lyr = cfg.num_layers
-        return {"tm_prev": zeros(lyr, batch, 1, cfg.d_model),
-                "cm_prev": zeros(lyr, batch, 1, cfg.d_model),
-                "state": zeros(lyr, batch, h, n, n, dt=torch.float32)}
+        return {"tm_prev": ((lyr, batch, 1, cfg.d_model), False),
+                "cm_prev": ((lyr, batch, 1, cfg.d_model), False),
+                "state": ((lyr, batch, h, n, n), True)}
     shp = (cfg.num_layers, batch, seq_len, kh, hd)               # encdec
     xshp = (cfg.num_layers, batch, cfg.encoder_seq, kh, hd)
-    return {"k": zeros(*shp), "v": zeros(*shp), "xk": zeros(*xshp),
-            "xv": zeros(*xshp)}
+    return {"k": (shp, False), "v": (shp, False), "xk": (xshp, False),
+            "xv": (xshp, False)}
+
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
+                dtype: torch.dtype = torch.bfloat16,
+                device=None, layout=None) -> Dict[str, torch.Tensor]:
+    """Empty (zero) caches sized for ``seq_len`` decode of ``batch``
+    sequences; on ``layout``'s mesh the rank's blocks of them."""
+    specs = None
+    if layout is not None:
+        check_shardable(cfg.family)
+        specs = cache_specs(cfg, layout.plan)
+    out = {}
+    for name, (shape, f32) in cache_shapes(cfg, batch, seq_len).items():
+        if specs is not None:
+            shape = tuple(sl.stop - sl.start
+                          for sl in layout.block(shape, specs[name]))
+        out[name] = torch.zeros(shape, dtype=torch.float32 if f32 else dtype,
+                                device=device)
+    return out
+
+
+def seq_axes(layout) -> tuple:
+    """The mesh axes a dense/moe KV cache's sequence is split over."""
+    if layout is None:
+        return ()
+    return entry_axes(kv_spec(layout.plan, 5)[2])
 
 
 def _logits(params: Transformer, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """f32 logits (B, Vpad) of the last position of x (B, S, D)."""
+    """f32 logits (B, Vpad) of the last position of x (B, S, D). On a
+    mesh the head is the rank's vocabulary columns, and the logits are
+    gathered over the vocabulary's and the batch's axes."""
     last = rms_norm(x[:, -1], params.ln_f, cfg.norm_eps)
-    return torch.matmul(last.float(), lm_head(params, cfg).float())
+    layout = params.layout
+    if layout is None:
+        return torch.matmul(last.float(), lm_head(params, cfg).float())
+    head = (layout.whole(params.embed, 1).T if cfg.tie_embeddings
+            else layout.whole(params.lm_head, 0))
+    logits = torch.matmul(last.float(), head.float())
+    for axes, dim in ((layout.axes("vocab"), 1), (layout.axes("batch"), 0)):
+        if axes:
+            logits = layout.all_gather(logits, axes, dim)
+    return logits
+
+
+def _local_rows(layout, tokens: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of the whole batch ``tokens`` (all rows without a
+    mesh), recorded as the call's rows for ``constrain``."""
+    if layout is None:
+        return tokens
+    tokens = tokens[layout.rows(tokens.shape[0])]
+    layout.batch_rows = tokens.shape[0]
+    return tokens
 
 
 @torch.no_grad()
@@ -103,19 +194,27 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     reads ``audio_embeds``, a VLM ``image_embeds``."""
     check_stub_inputs(cfg, audio_embeds, image_embeds)
     rc = rc or RunConfig()
+    layout = params.layout
     b, s = tokens.shape
     cache_len = cache_len or s
-    x = params.embed[tokens]
+    tokens = _local_rows(layout, tokens)
+    x = constrain(embed_tokens(params, tokens), layout, "batch", None, None)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    c = init_caches(cfg, b, cache_len, cache_dtype, x.device)
+    c = init_caches(cfg, b, cache_len, cache_dtype, x.device, layout)
+    seq = seq_axes(layout)
 
     def self_attn(p, x_, k_cache, v_cache):
         """x_ plus p's causal self-attention through B4; its keys and
-        values written into the first s positions of the caches."""
+        values written into the first s positions of the caches (those
+        of the rank's block of positions on a mesh)."""
         out = attention(p.attn, cfg, rms_norm(x_, p.ln1, cfg.norm_eps),
-                        positions, impl="pallas", return_kv=True)
-        k_cache[:, :s] = out.k.to(cache_dtype)
-        v_cache[:, :s] = out.v.to(cache_dtype)
+                        positions, impl="pallas", return_kv=True,
+                        layout=layout)
+        s_loc = k_cache.shape[1]
+        lo = layout.index(seq) * s_loc if seq else 0
+        n = max(0, min(s - lo, s_loc))
+        k_cache[:, :n] = out.k[:, lo:lo + n].to(cache_dtype)
+        v_cache[:, :n] = out.v[:, lo:lo + n].to(cache_dtype)
         return x_ + out.out
 
     def cross_attn(p, ln, x_, src, k_cache, v_cache):
@@ -131,7 +230,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.family in ("dense", "moe"):
         for layer, p in enumerate(params.blocks):
             x = self_attn(p, x, c["k"][layer], c["v"][layer])
-            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+            x = constrain(x, layout, "batch", None, None)
     elif cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
         zero_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
@@ -188,15 +288,21 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
 
     The caches are updated in place at ``pos`` (the recurrent states
     replaced) and returned as given. ``rc`` (default ``RunConfig()``)
-    gives the MoE fields.
+    gives the MoE fields. On a mesh ``token`` is the whole batch and the
+    caches the rank's blocks.
     """
     rc = rc or RunConfig()
     c = caches
-    x = params.embed[token[:, None]]                     # (B, 1, D)
+    layout = params.layout
+    token = _local_rows(layout, token)
+    x = constrain(embed_tokens(params, token[:, None]), layout, "batch",
+                  None, None)                            # (B, 1, D)
+    seq = seq_axes(layout)
 
     def self_attn(p, x_, k_cache, v_cache):
         out = decode_attention(p.attn, cfg, rms_norm(x_, p.ln1, cfg.norm_eps),
-                               pos, k_cache, v_cache)
+                               pos, k_cache, v_cache, layout=layout,
+                               seq_axes=seq)
         return x_ + out.out
 
     def cross_attn(p, ln, x_, k_cache, v_cache):
@@ -208,7 +314,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     if cfg.family in ("dense", "moe"):
         for layer, p in enumerate(params.blocks):
             x = self_attn(p, x, c["k"][layer], c["v"][layer])
-            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+            x = constrain(x, layout, "batch", None, None)
     elif cfg.family == "ssm":
         for layer, p in enumerate(params.blocks):
             tm_prev, cm_prev = c["tm_prev"][layer], c["cm_prev"][layer]
@@ -256,4 +363,5 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     return _logits(params, cfg, x), caches
 
 
-__all__ = ["init_caches", "prefill", "decode_step"]
+__all__ = ["init_caches", "cache_specs", "cache_shapes", "kv_spec",
+           "seq_axes", "prefill", "decode_step"]

@@ -20,19 +20,33 @@ code, which the port follows, does not). The expert products are batched
 matrix products (``torch.matmul`` over the expert axis), as the reference
 computes them with einsum outside any Pallas kernel.
 
-``impl='ep_local'`` (expert parallelism over a mesh) waits for ROADMAP
-A18d; without a mesh the reference runs ``moe_sort`` in its place, and so
-does the port.
+``impl='ep_local'`` is :func:`moe_ep_local`, expert parallelism over a
+mesh with a dispatch local to each data shard and its own capacity
+(``max(4, int(T_loc·k·cf/E) + 1)``, not :func:`_capacity`); without a
+mesh, or where the plan gives the experts no mesh axis, the reference runs
+``moe_sort`` in its place, and so does the port.
+
+On a mesh (``layout``) the dense SwiGLU is tensor-parallel (``wi``, ``wg``
+column-parallel on the rank's ``ff`` slice, ``wo`` row-parallel, one
+all-reduce), and ``sort`` and ``einsum`` compute the unsharded function,
+as GSPMD does: every rank routes every token of the batch (gathered over
+the data axes) exactly as one device would, with :func:`_capacity` of the
+whole batch, runs its own experts (``experts`` → model) or its slice of
+every expert's hidden (``expert_ff`` → model), and the partial outputs of
+its own tokens are summed with one all-reduce over the model axis.
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .common import dense_init, linear, weight
+from .common import dense_init, linear, linear_rows, reduce_dtype, weight
+from .parallel import copy_to, reduce_from
 
 MOE_IMPLS = ("sort", "einsum", "ep_local")
 
@@ -43,18 +57,27 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.wi = weight(dense_init((d, f), generator, dtype, device))
-        self.wg = weight(dense_init((d, f), generator, dtype, device))
-        self.wo = weight(dense_init((f, d), generator, dtype, device))
+        self.wi = weight(dense_init((d, f), generator, dtype, device),
+                         ("embed", "ff"))
+        self.wg = weight(dense_init((d, f), generator, dtype, device),
+                         ("embed", "ff"))
+        self.wo = weight(dense_init((f, d), generator, dtype, device),
+                         ("ff", "embed"))
 
 
 def init_mlp(cfg: ModelConfig, generator, dtype, device) -> MLP:
     return MLP(cfg, generator, dtype, device)
 
 
-def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(linear(x, p.wg)) * linear(x, p.wi)
-    return linear(h, p.wo)
+def mlp(p: MLP, x: torch.Tensor, layout=None) -> torch.Tensor:
+    if layout is None:
+        h = torch.nn.functional.silu(linear(x, p.wg)) * linear(x, p.wi)
+        return linear(h, p.wo)
+    wi, wg, wo = layout.whole(p.wi, 0), layout.whole(p.wg, 0), \
+        layout.whole(p.wo, 1)
+    h = torch.nn.functional.silu(linear(x, wg)) * linear(x, wi)
+    ff = layout.axes("ff")
+    return linear_rows(h, wo, layout, ff) if ff else linear(h, wo)
 
 
 class MoE(nn.Module):
@@ -67,17 +90,20 @@ class MoE(nn.Module):
         d, e = cfg.d_model, cfg.num_experts
         f = cfg.moe_d_ff or cfg.d_ff
         self.router = weight(dense_init((d, e), generator, torch.float32,
-                                        device))
-        self.wi = weight(dense_init((e, d, f), generator, dtype, device))
-        self.wg = weight(dense_init((e, d, f), generator, dtype, device))
-        self.wo = weight(dense_init((e, f, d), generator, dtype, device))
+                                        device), ("embed", None))
+        self.wi = weight(dense_init((e, d, f), generator, dtype, device),
+                         ("experts", "expert_embed", "expert_ff"))
+        self.wg = weight(dense_init((e, d, f), generator, dtype, device),
+                         ("experts", "expert_embed", "expert_ff"))
+        self.wo = weight(dense_init((e, f, d), generator, dtype, device),
+                         ("experts", "expert_ff", "expert_embed"))
 
 
 def init_moe(cfg: ModelConfig, generator, dtype, device) -> MoE:
     return MoE(cfg, generator, dtype, device)
 
 
-def _router(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+def _router(p, x: torch.Tensor, cfg: ModelConfig):
     """Top-k routing. x (T, d) → gates (T, k) f32, experts (T, k) int64.
 
     The k largest f32 logits in descending order, equal logits in
@@ -100,10 +126,15 @@ def _capacity(t: int, cfg: ModelConfig, factor: float) -> int:
     return ((c + 31) // 32) * 32
 
 
-def _experts_ffn(p: MoE, xin: torch.Tensor) -> torch.Tensor:
+def _experts_ffn(p, xin: torch.Tensor) -> torch.Tensor:
     """xin (E, C, d) → (E, C, d), every expert's SwiGLU on its batch
-    (:func:`linear` on 3-D operands is a batched product)."""
+    (:func:`linear` on 3-D operands is a batched product). Where ``p``
+    holds a slice of each expert's hidden (``p.partial``), the last
+    product stays in the reduce dtype: a partial sum for the all-reduce."""
     h = torch.nn.functional.silu(linear(xin, p.wg)) * linear(xin, p.wi)
+    if getattr(p, "partial", False):
+        return torch.matmul(h.float(), p.wo.float()).to(
+            reduce_dtype(xin.dtype))
     return linear(h, p.wo)
 
 
@@ -113,9 +144,12 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def moe_einsum(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-               capacity_factor: float = 1.25) -> torch.Tensor:
-    """One-hot dispatch/combine MoE. x (T, d) → (T, d)."""
+def moe_einsum(p, x: torch.Tensor, cfg: ModelConfig,
+               capacity_factor: float = 1.25, first: int = 0
+               ) -> torch.Tensor:
+    """One-hot dispatch/combine MoE. x (T, d) → (T, d). Where ``p`` holds
+    the experts ``first, first + 1, …`` only (a mesh's block), the result
+    is their part of the output."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     c = _capacity(t, cfg, capacity_factor)
@@ -129,15 +163,21 @@ def moe_einsum(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     pos_oh = _one_hot(pos.to(torch.int32), c)             # (T, k, E, C)
     dispatch = torch.einsum("tke,tkec->tec", kept, pos_oh)
     combine = torch.einsum("tk,tke,tkec->tec", gates, kept, pos_oh)
+    n_e = p.wi.shape[0]
+    dispatch = dispatch[:, first:first + n_e]
+    combine = combine[:, first:first + n_e]
     xin = torch.einsum("tec,td->ecd", dispatch.to(x.dtype).float(),
                        x.float()).to(x.dtype)
     out = _experts_ffn(p, xin)
     return torch.einsum("tec,ecd->td", combine, out.float()).to(out.dtype)
 
 
-def moe_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-             capacity_factor: float = 1.25) -> torch.Tensor:
-    """Gather/scatter dispatch MoE (no one-hot products). x (T, d)."""
+def moe_sort(p, x: torch.Tensor, cfg: ModelConfig,
+             capacity_factor: float = 1.25, first: int = 0) -> torch.Tensor:
+    """Gather/scatter dispatch MoE (no one-hot products). x (T, d). Where
+    ``p`` holds the experts ``first, first + 1, …`` only (a mesh's block),
+    the result is their part of the output: the routing, the capacity and
+    every assignment's rank are the whole layer's."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     c = _capacity(t, cfg, capacity_factor)
@@ -156,12 +196,16 @@ def moe_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     rank = torch.arange(t * k, device=x.device) - starts[e_sorted]
     valid = rank < c
     slot = torch.where(valid, rank, 0)
+    n_e = p.wi.shape[0]
+    row = e_sorted - first
+    valid = valid & (row >= 0) & (row < n_e)
+    row = torch.where(valid, row, 0)
 
     # Tokens into expert batches. A dropped assignment adds a zero row to
     # slot 0 of its expert, so the scatter must accumulate: an assignment
     # would overwrite the kept token that owns the slot.
-    xin = torch.zeros((e, c, d), dtype=x.dtype, device=x.device)
-    xin = xin.index_put((e_sorted, slot),
+    xin = torch.zeros((n_e, c, d), dtype=x.dtype, device=x.device)
+    xin = xin.index_put((row, slot),
                         torch.where(valid[:, None], x[tok_sorted],
                                     torch.zeros((), dtype=x.dtype,
                                                 device=x.device)),
@@ -170,14 +214,14 @@ def moe_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig,
 
     # Combine: each kept assignment's result, times its gate, added to
     # its token; a dropped one's gate is 0.
-    vals = out[e_sorted, slot] * (g_sorted * valid)[:, None].to(out.dtype)
+    vals = out[row, slot] * (g_sorted * valid)[:, None].to(out.dtype)
     return torch.zeros((t, d), dtype=out.dtype,
                        device=x.device).index_add(0, tok_sorted, vals)
 
 
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
-        capacity_factor: float = 1.25,
-        token_chunk: int = 65_536) -> torch.Tensor:
+        capacity_factor: float = 1.25, token_chunk: int = 65_536,
+        layout=None, mesh=None) -> torch.Tensor:
     """x (B, S, d) → (B, S, d); ``impl`` one of :data:`MOE_IMPLS`.
 
     The B·S tokens route together (capacity counts them all). More than
@@ -186,29 +230,164 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
     dispatch buffers scale with the chunk; under grad each chunk is
     checkpointed (recomputed in the backward), as the reference wraps its
     chunk scan in ``jax.checkpoint``.
+
+    On a mesh (``layout``, the model's; ``mesh``, the ``RunConfig``'s)
+    ``ep_local`` runs :func:`moe_ep_local` where the plan gives the
+    experts a mesh axis and ``mesh`` is set, else ``sort``; ``sort`` and
+    ``einsum`` run as the module docstring says.
     """
     if impl not in MOE_IMPLS:
         raise ValueError(f"moe impl {impl!r} is not one of {MOE_IMPLS}")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    t = xt.shape[0]
+    if layout is not None:
+        ep = layout.axes("experts")
+        if impl == "ep_local" and mesh is not None and ep:
+            w = types.SimpleNamespace(router=layout.whole(p.router, 0),
+                                      wi=p.wi, wg=p.wg, wo=p.wo)
+            y = moe_ep_local(w, xt, cfg, capacity_factor, layout)
+            return y.reshape(b, s, d).to(x.dtype)
+        return _moe_on_mesh(p, xt, cfg, impl, capacity_factor, token_chunk,
+                            layout).reshape(b, s, d).to(x.dtype)
     fn = moe_einsum if impl == "einsum" else moe_sort
+    return _chunked(fn, p, xt, cfg, capacity_factor, token_chunk, 0
+                    ).reshape(b, s, d).to(x.dtype)
+
+
+def _chunked(fn, p, xt: torch.Tensor, cfg: ModelConfig,
+             capacity_factor: float, token_chunk: int, first: int
+             ) -> torch.Tensor:
+    """``fn`` over the tokens xt (T, d), ``token_chunk`` at a time."""
+    t = xt.shape[0]
     if t <= token_chunk:
-        y = fn(p, xt, cfg, capacity_factor)
+        return fn(p, xt, cfg, capacity_factor, first)
+    pad = (-t) % token_chunk
+    if pad:
+        xt = torch.nn.functional.pad(xt, (0, 0, 0, pad))
+    ys = []
+    for xi in xt.split(token_chunk):
+        if torch.is_grad_enabled():
+            ys.append(checkpoint(fn, p, xi, cfg, capacity_factor, first,
+                                 use_reentrant=False))
+        else:
+            ys.append(fn(p, xi, cfg, capacity_factor, first))
+    return torch.cat(ys)[:t]
+
+
+def _moe_on_mesh(p: MoE, xt: torch.Tensor, cfg: ModelConfig, impl: str,
+                 capacity_factor: float, token_chunk: int, layout
+                 ) -> torch.Tensor:
+    """``sort`` or ``einsum`` on a mesh: the rank's tokens xt (T_loc, d)
+    → their outputs, the unsharded function's (module docstring)."""
+    batch = layout.axes("batch")
+    xs = layout.all_gather(xt, batch, 0) if batch else xt
+    ep, tp = layout.axes("experts"), layout.axes("expert_ff")
+    w = types.SimpleNamespace(
+        router=layout.whole(p.router, 0),
+        wi=layout.whole(p.wi, 1, "expert_embed"),
+        wg=layout.whole(p.wg, 1, "expert_embed"),
+        wo=layout.whole(p.wo, 2, "expert_embed"), partial=bool(tp))
+    first = layout.index(ep) * p.wi.shape[0] if ep else 0
+    fn = moe_einsum if impl == "einsum" else moe_sort
+    y = _chunked(fn, w, xs, cfg, capacity_factor, token_chunk, first)
+    if batch:
+        y = y[layout.rows(xs.shape[0])]
+    split = ep or tp
+    return layout.all_reduce(y, split) if split else y
+
+
+def ep_local_capacity(t_loc: int, cfg: ModelConfig, factor: float) -> int:
+    """``moe_ep_local``'s slots per expert for a chunk of ``t_loc`` tokens
+    on one data shard: ``max(4, int(t_loc·k·factor/E) + 1)``, neither
+    clipped to ``t_loc`` nor rounded to 32 as :func:`_capacity` is."""
+    return max(4, int(t_loc * cfg.experts_per_tok * factor
+                      / cfg.num_experts) + 1)
+
+
+def _ep_dispatch(w, x: torch.Tensor, cfg: ModelConfig,
+                 capacity_factor: float, m: int, e_loc: int) -> torch.Tensor:
+    """One chunk of :func:`moe_ep_local` on model shard ``m``: x (t, d) →
+    the partial (t, d) of the shard's experts ``[m·e_loc, (m+1)·e_loc)``.
+    Assignments to other experts go to the spill row ``e_loc``, which is
+    sorted last and dropped."""
+    t, d = x.shape
+    k = cfg.experts_per_tok
+    c = ep_local_capacity(t, cfg, capacity_factor)
+    gates, idx = _router(w, x, cfg)
+    flat_e = idx.reshape(-1) - m * e_loc
+    flat_g = gates.reshape(-1)
+    flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    mine = (flat_e >= 0) & (flat_e < e_loc)
+    e_mine = torch.where(mine, flat_e, e_loc)             # spill row e_loc
+    order = torch.argsort(e_mine, stable=True)
+    e_sorted = e_mine[order]
+    tok_sorted = flat_tok[order]
+    g_sorted = flat_g[order]
+    counts = torch.bincount(e_sorted, minlength=e_loc + 1)
+    starts = torch.cumsum(counts, dim=0) - counts
+    rank = torch.arange(t * k, device=x.device) - starts[e_sorted]
+    valid = (e_sorted < e_loc) & (rank < c)
+    slot = torch.where(valid, rank, 0)
+    row = torch.where(valid, e_sorted, e_loc)
+    xin = torch.zeros((e_loc + 1, c, d), dtype=x.dtype, device=x.device)
+    xin = xin.index_put((row, slot),
+                        torch.where(valid[:, None], x[tok_sorted],
+                                    torch.zeros((), dtype=x.dtype,
+                                                device=x.device)),
+                        accumulate=True)[:e_loc]
+    out = _experts_ffn(w, xin)                            # (E_loc, C, d)
+    out = torch.cat([out, torch.zeros((1, c, d), dtype=out.dtype,
+                                      device=out.device)])
+    vals = out[row, slot] * (g_sorted * valid)[:, None].to(out.dtype)
+    return torch.zeros((t, d), dtype=out.dtype,
+                       device=x.device).index_add(0, tok_sorted, vals)
+
+
+def moe_ep_local(w, x: torch.Tensor, cfg: ModelConfig,
+                 capacity_factor: float, layout) -> torch.Tensor:
+    """Expert parallelism with a *local* dispatch and one all-reduce: the
+    port of the reference's ``moe_ep_local``.
+
+    x (T_loc, d) are the rank's tokens (its block of the batch), the same
+    on every rank of the model axis; ``w`` holds the whole f32 ``router``
+    and the rank's ``E/|model|`` experts. Each rank routes its tokens,
+    gathers those assigned to its own experts (the others go to the spill
+    row), runs its experts and adds its partial (T_loc, d); an all-reduce
+    over the experts' axis completes the combine. Capacity is per data
+    shard and chunk (:func:`ep_local_capacity`); more than 8,192 tokens go
+    in chunks of 8,192 where that divides T_loc, each checkpointed under
+    grad as the reference's scan step is. Differentiable: x enters through
+    :func:`~repro_torch.models.parallel.copy_to` (its gradient summed over
+    the model axis) and the output leaves through ``reduce_from``.
+    """
+    ax = layout.axes("experts")
+    if not ax:
+        raise ValueError("ep_local needs an expert-parallel plan")
+    e_loc = cfg.num_experts // layout.span(ax)
+    if w.wi.shape[0] != e_loc:
+        raise ValueError(f"{w.wi.shape[0]} experts on this rank, not "
+                         f"E/|model| = {e_loc}")
+    m = layout.index(ax)
+    x = copy_to(x, layout, ax)
+    t_loc = x.shape[0]
+    chunk = min(8192, t_loc)
+    if t_loc % chunk:
+        chunk = t_loc
+    if chunk == t_loc:
+        y = _ep_dispatch(w, x, cfg, capacity_factor, m, e_loc)
     else:
-        pad = (-t) % token_chunk
-        if pad:
-            xt = torch.nn.functional.pad(xt, (0, 0, 0, pad))
         ys = []
-        for xi in xt.split(token_chunk):
+        for xi in x.split(chunk):
             if torch.is_grad_enabled():
-                ys.append(checkpoint(fn, p, xi, cfg, capacity_factor,
+                ys.append(checkpoint(_ep_dispatch, w, xi, cfg,
+                                     capacity_factor, m, e_loc,
                                      use_reentrant=False))
             else:
-                ys.append(fn(p, xi, cfg, capacity_factor))
-        y = torch.cat(ys)[:t]
-    return y.reshape(b, s, d).to(x.dtype)
+                ys.append(_ep_dispatch(w, xi, cfg, capacity_factor, m,
+                                       e_loc))
+        y = torch.cat(ys)
+    return reduce_from(y, layout, ax)
 
 
 __all__ = ["MLP", "init_mlp", "mlp", "MoE", "init_moe", "moe", "moe_einsum",
-           "moe_sort", "MOE_IMPLS"]
+           "moe_sort", "moe_ep_local", "ep_local_capacity", "MOE_IMPLS"]

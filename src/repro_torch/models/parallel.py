@@ -1,0 +1,225 @@
+"""A rank's place on a device mesh, and the collectives of sharded models.
+
+The reference annotates weights with ``PartitionSpec`` s and lets GSPMD
+insert the collectives. Eager PyTorch has none, so a sharded model here
+holds *local blocks* (``sharding.local_block``) and calls the collectives
+itself, in the Megatron/ZeRO manner. Every one goes through
+:class:`Layout`, which holds one process group per set of mesh axes and
+counts calls and bytes by kind in :data:`counts` (as ``core/dist.py``
+counts its rounds): ``all_reduce`` (sum or max) and ``all_gather``. The
+bytes are those the rank contributes (its input tensor). A group of one
+rank is a pass-through that is still counted, so a ``(1, 1)`` mesh runs
+the unsharded numbers with every collective's count visible.
+
+A gloo group carries CUDA tensors through host memory by design: the
+tensor is copied to the host, reduced or gathered there, and copied back.
+That is how two ranks share one card, which NCCL refuses; NCCL groups take
+CUDA tensors directly. No collective is ever skipped, and none falls back
+to another path when it fails.
+
+:func:`copy_to` and :func:`reduce_from` are the two autograd halves of a
+model-parallel region: the first is the identity forward and an all-reduce
+backward (a replicated input whose uses are split over ranks), the second
+an all-reduce forward and the identity backward (partial outputs summed).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .sharding import (ShardingPlan, Spec, axes_index, axes_span, entry_axes,
+                       local_block, mesh_axis_sizes, mesh_coords)
+
+KINDS = ("all_reduce", "all_gather")
+
+# Collectives issued and the bytes they carried since reset_counts().
+counts: Dict[str, Dict[str, int]] = {k: {"calls": 0, "bytes": 0}
+                                     for k in KINDS}
+
+
+def reset_counts() -> None:
+    for row in counts.values():
+        row["calls"] = row["bytes"] = 0
+
+
+def snapshot() -> Dict[str, Dict[str, int]]:
+    """A copy of :data:`counts`."""
+    return {k: dict(v) for k, v in counts.items()}
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    counts[kind]["calls"] += 1
+    counts[kind]["bytes"] += x.numel() * x.element_size()
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class Layout:
+    """The rank's coordinates on ``mesh`` (a ``DeviceMesh``) under
+    ``plan``, the groups of every set of its axes, and the collectives.
+
+    Built collectively: every rank of the mesh constructs it in the same
+    order, since each group of two or more axes is a ``new_group`` that
+    every rank must call. Single axes use the mesh's own groups.
+    """
+
+    def __init__(self, plan: ShardingPlan, mesh):
+        if not plan.active:
+            raise ValueError("a Layout needs an active plan")
+        self.plan, self.mesh = plan, mesh
+        self.sizes = mesh_axis_sizes(mesh)
+        names = tuple(mesh.mesh_dim_names)
+        self.coords = mesh_coords(mesh)
+        self.batch_rows: Optional[int] = None   # set by each entry point
+        self._groups: Dict[Tuple[str, ...], Optional[object]] = {}
+        grid = mesh.mesh
+        for r in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, r):
+                if axes_span(axes, self.sizes) == 1:
+                    self._groups[axes] = None
+                elif r == 1:
+                    self._groups[axes] = mesh.get_group(axes[0])
+                else:
+                    self._groups[axes] = self._new_group(grid, names, axes)
+
+    def _new_group(self, grid, names, axes):
+        others = [a for a in names if a not in axes]
+        mine = None
+        for idx in itertools.product(*(range(self.sizes[a])
+                                       for a in others)):
+            where = dict(zip(others, idx))
+            sel = tuple(slice(None) if a in axes else where[a]
+                        for a in names)
+            ranks = grid[sel].flatten().tolist()
+            g = dist.new_group(ranks)
+            if all(self.coords[a] == where[a] for a in others):
+                mine = g
+        return mine
+
+    # -- the plan on this rank -----------------------------------------
+
+    def axes(self, logical: str) -> Tuple[str, ...]:
+        """The mesh axes the plan gives ``logical``."""
+        return entry_axes(self.plan.axes.get(logical))
+
+    def span(self, axes: Sequence[str]) -> int:
+        return axes_span(axes, self.sizes)
+
+    def index(self, axes: Sequence[str]) -> int:
+        return axes_index(axes, self.sizes, self.coords)
+
+    def block(self, shape: Sequence[int], spec: Spec) -> Tuple[slice, ...]:
+        """This rank's slices of a ``shape`` leaf with ``spec``."""
+        return local_block(shape, spec, self.sizes, self.coords)
+
+    def local(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """This rank's block of the whole tensor ``t``, as a new tensor."""
+        return t[self.block(t.shape, spec)].clone()
+
+    def rows(self, n: int, logical: str = "batch") -> slice:
+        """The rank's block of ``n`` rows split over ``logical``'s axes."""
+        return self.block((n,), (self.plan.axes.get(logical),))[0]
+
+    def whole(self, w: torch.Tensor, dim: int,
+              logical: str = "embed") -> torch.Tensor:
+        """``w`` with its ``dim`` gathered over ``logical``'s axes: the
+        ZeRO gather of a weight's d_model rows just before use (the result
+        is dropped after it). ``w`` itself where the plan gives the axis
+        no mesh axis."""
+        axes = self.axes(logical)
+        return self.all_gather(w, axes, dim) if axes else w
+
+    def _group(self, axes: Sequence[str]):
+        key = tuple(a for a in self.mesh.mesh_dim_names if a in axes)
+        if len(key) != len(tuple(axes)):
+            raise ValueError(f"axes {tuple(axes)} are not the mesh's "
+                             f"{self.mesh.mesh_dim_names}")
+        return self._groups[key] if key else None
+
+    # -- collectives -----------------------------------------------------
+
+    def all_reduce(self, x: torch.Tensor, axes: Sequence[str],
+                   op: str = "sum") -> torch.Tensor:
+        """The ``op`` (sum or max) of ``x`` over the ranks that differ
+        only along ``axes``. ``x`` is not changed; over one rank the
+        result is ``x`` itself, so no caller writes into a result."""
+        _count("all_reduce", x)
+        g = self._group(axes)
+        if g is None:
+            return x
+        staged = _staged(x, g)
+        dist.all_reduce(staged, op=_OPS[op], group=g)
+        return staged.to(x.device)
+
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str],
+                   dim: int) -> torch.Tensor:
+        """The blocks of ``x`` over ``axes`` concatenated along ``dim`` in
+        row-major order of ``axes``: the inverse of :meth:`block` on that
+        dim."""
+        _count("all_gather", x)
+        g = self._group(axes)
+        if g is None:
+            return x
+        staged = _staged(x, g)
+        parts = [torch.empty_like(staged) for _ in range(self.span(axes))]
+        dist.all_gather(parts, staged, group=g)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    def gather_spec(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """The whole leaf from this rank's block ``t`` of a leaf with
+        ``spec``: an all-gather along every sharded dim."""
+        for dim, entry in enumerate(spec):
+            axes = entry_axes(entry)
+            if axes:
+                t = self.all_gather(t.contiguous(), axes, dim)
+        return t
+
+
+def _staged(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` contiguous, on the host for a gloo group (which this module
+    uses to carry CUDA tensors through host memory), as a fresh copy."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.detach().to("cpu", copy=True).contiguous()
+    return x.detach().clone().contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axes):
+        ctx.layout, ctx.axes = layout, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layout.all_reduce(g, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axes):
+        return layout.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, layout: Layout,
+            axes: Sequence[str]) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``axes`` backward."""
+    return _CopyTo.apply(x, layout, tuple(axes))
+
+
+def reduce_from(x: torch.Tensor, layout: Layout,
+                axes: Sequence[str]) -> torch.Tensor:
+    """Summed over ``axes`` forward; the identity backward."""
+    return _ReduceFrom.apply(x, layout, tuple(axes))
+
+
+__all__ = ["Layout", "counts", "reset_counts", "snapshot", "copy_to",
+           "reduce_from", "KINDS"]

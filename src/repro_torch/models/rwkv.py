@@ -49,17 +49,26 @@ class RWKVTimeMix(nn.Module):
         super().__init__()
         d, lora = cfg.d_model, cfg.rwkv_decay_lora
         f32 = torch.float32
-        self.mix = weight(torch.full((5, d), 0.5, dtype=dtype, device=device))
-        self.wr = weight(dense_init((d, d), generator, dtype, device))
-        self.wk = weight(dense_init((d, d), generator, dtype, device))
-        self.wv = weight(dense_init((d, d), generator, dtype, device))
-        self.wg = weight(dense_init((d, d), generator, dtype, device))
-        self.w0 = weight(torch.full((d,), -2.0, dtype=f32, device=device))
-        self.w_a = weight(dense_init((d, lora), generator, f32, device))
-        self.w_b = weight(dense_init((lora, d), generator, f32, device))
-        self.u = weight(torch.zeros(d, dtype=f32, device=device))
-        self.wo = weight(dense_init((d, d), generator, dtype, device))
-        self.ln_x = weight(torch.ones(d, dtype=dtype, device=device))
+        self.mix = weight(torch.full((5, d), 0.5, dtype=dtype, device=device),
+                          (None, None))
+        self.wr = weight(dense_init((d, d), generator, dtype, device),
+                         ("embed", "ff"))
+        self.wk = weight(dense_init((d, d), generator, dtype, device),
+                         ("embed", "ff"))
+        self.wv = weight(dense_init((d, d), generator, dtype, device),
+                         ("embed", "ff"))
+        self.wg = weight(dense_init((d, d), generator, dtype, device),
+                         ("embed", "ff"))
+        self.w0 = weight(torch.full((d,), -2.0, dtype=f32, device=device),
+                         (None,))
+        self.w_a = weight(dense_init((d, lora), generator, f32, device),
+                          ("embed", None))
+        self.w_b = weight(dense_init((lora, d), generator, f32, device),
+                          (None, None))
+        self.u = weight(torch.zeros(d, dtype=f32, device=device), (None,))
+        self.wo = weight(dense_init((d, d), generator, dtype, device),
+                         ("ff", "embed"))
+        self.ln_x = weight(torch.ones(d, dtype=dtype, device=device), (None,))
 
 
 class RWKVChannelMix(nn.Module):
@@ -69,10 +78,14 @@ class RWKVChannelMix(nn.Module):
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.mix = weight(torch.full((2, d), 0.5, dtype=dtype, device=device))
-        self.wk = weight(dense_init((d, f), generator, dtype, device))
-        self.wv = weight(dense_init((f, d), generator, dtype, device))
-        self.wr = weight(dense_init((d, d), generator, dtype, device))
+        self.mix = weight(torch.full((2, d), 0.5, dtype=dtype, device=device),
+                          (None, None))
+        self.wk = weight(dense_init((d, f), generator, dtype, device),
+                         ("embed", "ff"))
+        self.wv = weight(dense_init((f, d), generator, dtype, device),
+                         ("ff", "embed"))
+        self.wr = weight(dense_init((d, d), generator, dtype, device),
+                         ("embed", None))
 
 
 def _token_shift(x: torch.Tensor, x_prev: torch.Tensor):

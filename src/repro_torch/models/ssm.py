@@ -47,15 +47,18 @@ class Mamba(nn.Module):
         d_in, h, n = ssm_dims(cfg)
         f32 = torch.float32
         self.in_proj = weight(dense_init((d, 2 * d_in + 2 * n + h), generator,
-                                         dtype, device))
+                                         dtype, device), ("embed", "ff"))
         self.conv_w = weight(dense_init((CONV_K, d_in), generator, dtype,
-                                        device, in_axis_size=CONV_K))
-        self.A_log = weight(torch.zeros(h, dtype=f32, device=device))
-        self.D = weight(torch.ones(h, dtype=f32, device=device))
-        self.dt_bias = weight(torch.zeros(h, dtype=f32, device=device))
-        self.norm = weight(torch.ones(d_in, dtype=dtype, device=device))
+                                        device, in_axis_size=CONV_K),
+                             (None, "ff"))
+        self.A_log = weight(torch.zeros(h, dtype=f32, device=device), (None,))
+        self.D = weight(torch.ones(h, dtype=f32, device=device), (None,))
+        self.dt_bias = weight(torch.zeros(h, dtype=f32, device=device),
+                              (None,))
+        self.norm = weight(torch.ones(d_in, dtype=dtype, device=device),
+                           (None,))
         self.out_proj = weight(dense_init((d_in, d), generator, dtype,
-                                          device))
+                                          device), ("ff", "embed"))
 
 
 def _split_proj(proj, d_in, h, n):

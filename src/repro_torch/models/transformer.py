@@ -21,6 +21,16 @@ loop, which eager PyTorch runs without compiling. The families:
 
 ``RunConfig`` keeps every field of the reference's; a non-default value of
 a field the family does not read is refused (:meth:`RunConfig.check`).
+
+A dense or moe model built on a mesh (``model.build_model(plan=, mesh=)``)
+holds each weight's block (``models/parallel.py`` ``Layout`` in
+``Transformer.layout``): the embedding is vocab-parallel (the rank's
+vocabulary range looked up, exact zeros elsewhere, one all-reduce), the
+head column-parallel (logits all-gathered over the vocabulary's and the
+batch's axes, so every rank holds the same logits), the attention and
+feed-forward tensor-parallel, and each weight's d_model rows are gathered
+over data just before use (ZeRO-3). ``constrain`` keeps the reference's
+call sites. The other four families on a mesh wait for ROADMAP 18d-2.
 The loss avoids materialising (B, S, V) logits by taking the vocabulary
 projection and the softmax cross-entropy a sequence chunk at a time, each
 chunk checkpointed.
@@ -40,7 +50,7 @@ from ..kernels.ref import NEG_INF
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .attention import Attention, attention
-from .common import dense_init, rms_norm, weight
+from .common import constrain, dense_init, param_axes, rms_norm, weight
 from .mlp import MLP, MoE, mlp, moe
 
 
@@ -48,7 +58,7 @@ from .mlp import MLP, MoE, mlp, moe
 class RunConfig:
     """Per-run execution knobs, the reference's fields and defaults."""
     attn_impl: str = "chunked"       # chunked | pallas | naive
-    moe_impl: str = "sort"           # sort | einsum | ep_local (= sort)
+    moe_impl: str = "sort"           # sort | einsum | ep_local
     moe_capacity: float = 1.25       # capacity factor (tokens may drop)
     moe_token_chunk: int = 8192      # dispatch chunk (bounds (T·k,d) buffers)
     remat: bool = False
@@ -58,19 +68,25 @@ class RunConfig:
     mesh: object = None              # required by moe_impl='ep_local'
 
     # Fields only some families read, by family; every family reads
-    # attn_impl, remat and loss_chunk, and none reads mesh yet.
-    FAMILY_FIELDS = {"moe": ("moe_impl", "moe_capacity", "moe_token_chunk"),
+    # attn_impl, remat and loss_chunk.
+    FAMILY_FIELDS = {"moe": ("moe_impl", "moe_capacity", "moe_token_chunk",
+                             "mesh"),
+                     "dense": ("mesh",),
                      "ssm": ("rwkv_impl",), "hybrid": ("ssd_chunk",)}
+    SHARDED_FAMILIES = ("dense", "moe")
     OTHER_FAMILIES = ("moe_impl", "moe_capacity", "moe_token_chunk",
                       "rwkv_impl", "ssd_chunk", "mesh")
 
     def check(self, family: str) -> None:
         """Raise on a field that ``family`` does not read set away from its
         default: the MoE fields outside the moe family, ``rwkv_impl``
-        outside ssm, ``ssd_chunk`` outside hybrid, and always ``mesh``
-        (sharding). :func:`attention` checks ``attn_impl`` and :func:`moe`
-        ``moe_impl``."""
+        outside ssm, ``ssd_chunk`` outside hybrid. ``mesh`` is read by
+        dense and moe; the other families raise ``NotImplementedError``
+        for it (ROADMAP 18d-2). :func:`attention` checks ``attn_impl`` and
+        :func:`moe` ``moe_impl``."""
         check_family(family)
+        if self.mesh is not None:
+            check_shardable(family)
         default = RunConfig()
         read = self.FAMILY_FIELDS.get(family, ())
         changed = [f for f in self.OTHER_FAMILIES if f not in read
@@ -79,12 +95,21 @@ class RunConfig:
             raise ValueError(f"RunConfig fields {changed} are not read by the "
                              f"{family} family, which keeps their defaults "
                              f"(the MoE fields are the moe family's, "
-                             f"rwkv_impl the ssm's, ssd_chunk the hybrid's; "
-                             f"mesh waits for ROADMAP A18d)")
+                             f"rwkv_impl the ssm's, ssd_chunk the hybrid's)")
+
+
+def check_shardable(family: str) -> None:
+    """Raise ``NotImplementedError`` for a family that does not run on a
+    mesh yet (all but dense and moe: ROADMAP 18d-2)."""
+    if family not in RunConfig.SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"the {family} family does not run on a mesh yet (ROADMAP "
+            f"18d-2); dense and moe do")
 
 
 def _norm(cfg: ModelConfig, dtype, device) -> nn.Parameter:
-    return weight(torch.ones(cfg.d_model, dtype=dtype, device=device))
+    return weight(torch.ones(cfg.d_model, dtype=dtype, device=device),
+                  (None,))
 
 
 class Block(nn.Module):
@@ -171,11 +196,11 @@ class Transformer(nn.Module):
         self.cfg = cfg
         v, d = cfg.padded_vocab, cfg.d_model
         self.embed = weight(dense_init((v, d), generator, dtype, device,
-                                       in_axis_size=d))
+                                       in_axis_size=d), ("vocab", "embed"))
         self.ln_f = _norm(cfg, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = weight(dense_init((d, v), generator, dtype,
-                                             device))
+                                             device), ("embed", "vocab"))
 
         def make(cls):
             return lambda: cls(cfg, generator, dtype, device)
@@ -199,6 +224,10 @@ class Transformer(nn.Module):
             self.encoder = _stack(cfg.encoder_layers, make(Block))
             self.enc_ln_f = _norm(cfg, dtype, device)
             self.blocks = _stack(cfg.num_layers, make(DecoderBlock))
+        # Each weight's logical axes by name, kept past to_empty/to, and
+        # the mesh layout of a sharded build (set by build_model).
+        self.param_axes = param_axes(self)
+        self.layout = None
 
     @property
     def device(self) -> torch.device:
@@ -222,22 +251,45 @@ def check_stub_inputs(cfg: ModelConfig, audio_embeds: Optional[torch.Tensor],
 
 
 def ffn(p: Block, cfg: ModelConfig, rc: RunConfig,
-        z: torch.Tensor) -> torch.Tensor:
+        z: torch.Tensor, layout=None) -> torch.Tensor:
     """The block's feed-forward on the normed z (B, S, D): the experts
-    with ``rc``'s MoE fields where the config has them, else the SwiGLU."""
+    with ``rc``'s MoE fields where the config has them, else the SwiGLU;
+    on ``layout``'s mesh where given."""
     if cfg.num_experts:
         return moe(p.moe, z, cfg, impl=rc.moe_impl,
                    capacity_factor=rc.moe_capacity,
-                   token_chunk=rc.moe_token_chunk)
-    return mlp(p.mlp, z)
+                   token_chunk=rc.moe_token_chunk, layout=layout,
+                   mesh=rc.mesh)
+    return mlp(p.mlp, z, layout)
+
+
+def embed_tokens(params: "Transformer", tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """The embedding rows of ``tokens``. On a mesh the rank holds a
+    vocabulary range: it looks up the tokens inside it, puts exact zeros
+    elsewhere and all-reduces over the vocabulary's axes, which adds one
+    row to zeros and so gives the unsharded rows bit for bit."""
+    layout = params.layout
+    if layout is None:
+        return params.embed[tokens.long()]
+    emb = layout.whole(params.embed, 1)                  # (V_loc, d)
+    vocab = layout.axes("vocab")
+    n = emb.shape[0]
+    local = tokens.long() - layout.index(vocab) * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], emb[local.clamp(0, n - 1)],
+                       torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return layout.all_reduce(rows, vocab) if vocab else rows
 
 
 def _dense_block(p: Block, cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
-                 positions: torch.Tensor, causal: bool = True
+                 positions: torch.Tensor, causal: bool = True, layout=None
                  ) -> torch.Tensor:
     x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
-                      positions, causal=causal, impl=rc.attn_impl).out
-    return x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps))
+                      positions, causal=causal, impl=rc.attn_impl,
+                      layout=layout).out
+    x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+    return constrain(x, layout, "batch", None, None)
 
 
 def _cross_block(p: CrossLayer, cfg: ModelConfig, rc: RunConfig,
@@ -303,9 +355,14 @@ def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
             image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D). An encdec
     model reads ``audio_embeds``, a VLM ``image_embeds``
-    (:func:`check_stub_inputs`)."""
+    (:func:`check_stub_inputs`). On a mesh ``tokens`` is the whole batch
+    and the result the rank's rows of it."""
     check_stub_inputs(cfg, audio_embeds, image_embeds)
-    x = params.embed[tokens.long()]
+    layout = params.layout
+    if layout is not None:
+        tokens = tokens[layout.rows(tokens.shape[0])]
+        layout.batch_rows = tokens.shape[0]
+    x = constrain(embed_tokens(params, tokens), layout, "batch", None, None)
     b = x.shape[0]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
@@ -315,8 +372,8 @@ def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
 
     if cfg.family in ("dense", "moe"):
         for p in params.blocks:
-            x = run(lambda x_, p_=p: _dense_block(p_, cfg, rc, x_, positions),
-                    x)
+            x = run(lambda x_, p_=p: _dense_block(p_, cfg, rc, x_, positions,
+                                                  layout=layout), x)
     elif cfg.family == "vlm":
         img = image_embeds.to(x.dtype)
         for group, pc in zip(params.self_groups, params.cross_layers):
@@ -400,7 +457,11 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
 def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S);
-    ``audio_embeds`` or ``image_embeds`` where the family reads them)."""
+    ``audio_embeds`` or ``image_embeds`` where the family reads them).
+    Training on a mesh waits for ROADMAP 18d-2."""
+    if params.layout is not None:
+        raise NotImplementedError("the loss of a sharded model (the sharded "
+                                  "train step) waits for ROADMAP 18d-2")
     hidden = forward(params, cfg, rc, batch["tokens"],
                      audio_embeds=batch.get("audio_embeds"),
                      image_embeds=batch.get("image_embeds"))
@@ -411,5 +472,5 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
 
 __all__ = ["Block", "CrossLayer", "DecoderBlock", "MambaLayer", "RWKVBlock",
            "Transformer", "RunConfig", "STUB_INPUTS", "check_stub_inputs",
-           "ffn", "encode", "forward", "lm_head", "chunked_cross_entropy",
-           "loss_fn"]
+           "check_shardable", "embed_tokens", "ffn", "encode", "forward",
+           "lm_head", "chunked_cross_entropy", "loss_fn"]

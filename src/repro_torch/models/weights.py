@@ -17,7 +17,12 @@ head is ``embed.T``). An MoE block's leaves are ``blocks/moe/router``
 dense block has ``blocks/mlp``.
 
 The tree is given as numpy arrays (``np.asarray`` of each jax leaf), so
-this module needs neither jax nor the reference package.
+this module needs neither jax nor the reference package. On a mesh,
+:func:`shard_params` cuts a whole tree to one rank's blocks (each
+reference leaf's spec is its port weights' with ``None`` for the stacked
+axes, :func:`reference_specs`), ``from_reference_params(plan=, mesh=)``
+loads them into a sharded model, and :func:`gather_params` gives the
+whole tree back from a sharded model.
 
 A whole train state crosses as the flat mapping the reference's checkpoint
 writes (``train/checkpoint.py``): each leaf keyed by the ``str`` of its
@@ -38,7 +43,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..util import DeviceLike, resolve_device
+from .common import attach_axes
 from .model import Model, build_model
+from .sharding import (ShardingPlan, local_block, mesh_axis_sizes,
+                       mesh_coords)
 from .transformer import RunConfig
 
 # Key prefixes of the reference's TrainState leaves, by the port's part.
@@ -93,15 +101,72 @@ def _count_leaves(tree) -> int:
     return 1
 
 
+def reference_specs(model: Model, plan: ShardingPlan
+                    ) -> Dict[Tuple[str, ...], tuple]:
+    """Each reference leaf's spec under ``plan``: its port weights' spec
+    with ``None`` for each stacked axis, as the reference's stacked init
+    prepends it."""
+    out = {}
+    for name, spec in model.param_specs(plan).items():
+        path, idx = reference_path(name)
+        out[path] = (None,) * len(idx) + spec
+    return out
+
+
+def _tree_set(tree: dict, path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def shard_params(cfg: ModelConfig, params: Mapping, plan: ShardingPlan,
+                 mesh) -> dict:
+    """The rank's blocks of the whole reference tree ``params`` (numpy),
+    as a tree of the same paths: each leaf cut by :func:`local_block` of
+    its spec (:func:`reference_specs`) at this rank's mesh coordinates."""
+    specs = reference_specs(build_model(cfg, device="meta"), plan)
+    sizes, coords = mesh_axis_sizes(mesh), mesh_coords(mesh)
+    out: dict = {}
+    for path, spec in specs.items():
+        leaf = _leaf(params, path)
+        _tree_set(out, path,
+                  np.array(leaf[local_block(leaf.shape, spec, sizes,
+                                            coords)]))
+    return out
+
+
+def gather_params(model: Model) -> dict:
+    """The whole reference tree (numpy, layers stacked) of a model, from
+    its blocks on a mesh (an all-gather a sharded dim, on every rank) or
+    from an unsharded one. bf16 leaves as ``|V2`` words."""
+    layout = model.layout
+    whole = {}
+    for name, p in model.named_parameters():
+        t = p.detach()
+        if layout is not None:
+            t = layout.gather_spec(t, layout.plan.P(*p.axes))
+        whole[name] = t
+    out: dict = {}
+    for key, leaf in stacked_arrays("", whole).items():
+        _tree_set(out, tuple(k[2:-2] for k in key.split("/")[1:]), leaf)
+    return out
+
+
 def from_reference_params(cfg: ModelConfig, params: Mapping,
                           device: DeviceLike = None,
                           dtype: torch.dtype = torch.float32,
-                          rc: Optional[RunConfig] = None) -> Model:
+                          rc: Optional[RunConfig] = None,
+                          plan: Optional[ShardingPlan] = None,
+                          mesh=None) -> Model:
     """A port model on ``device`` holding the reference tree ``params``
     (built on ``meta`` first, so no weights are drawn); raises on a leaf
-    missing from either side or a shape that does not match."""
-    model = build_model(cfg, device="meta", dtype=dtype, rc=rc)
+    missing from either side or a shape that does not match. With
+    ``plan`` and ``mesh`` the model is sharded and ``params`` must hold
+    this rank's blocks (:func:`shard_params`)."""
+    model = build_model(cfg, device="meta", dtype=dtype, rc=rc, plan=plan,
+                        mesh=mesh)
     model = model.to_empty(device=resolve_device(device))
+    attach_axes(model, model.param_axes)
     n_leaf = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -168,10 +233,12 @@ def stacked_arrays(prefix: str, tensors: Mapping[str, torch.Tensor]
 
 
 def load_stacked(prefix: str, arrays: Mapping[str, np.ndarray],
-                 tensors: Mapping[str, torch.Tensor]) -> None:
+                 tensors: Mapping[str, torch.Tensor], block=None) -> None:
     """Copy the reference leaves ``arrays`` (keyed as in its checkpoint)
     into the port tensors ``tensors``, in place; raises on a missing key
-    or a shape that does not match."""
+    or a shape that does not match. ``block(name, part)``, where given,
+    cuts each layer's whole ``part`` to the block ``tensors[name]``
+    holds."""
     with torch.no_grad():
         for path, slices in _reference_leaves(tensors).items():
             key = reference_key(prefix, path)
@@ -181,6 +248,8 @@ def load_stacked(prefix: str, arrays: Mapping[str, np.ndarray],
             for idx, name in slices:
                 t = tensors[name]
                 part = value[idx]
+                if block is not None:
+                    part = block(name, part)
                 if tuple(part.shape) != tuple(t.shape):
                     raise ValueError(f"leaf {key}: shape {value.shape} does "
                                      f"not hold {name} {tuple(t.shape)}")
@@ -215,21 +284,22 @@ def load_train_state_arrays(arrays: Mapping[str, np.ndarray],
                             params: Mapping[str, torch.Tensor],
                             mu: Mapping[str, torch.Tensor],
                             nu: Mapping[str, torch.Tensor],
-                            err: Optional[Mapping[str, torch.Tensor]] = None
-                            ) -> int:
+                            err: Optional[Mapping[str, torch.Tensor]] = None,
+                            block=None) -> int:
     """Copy a reference train state (flat leaves) into the port tensors in
-    place; returns its step."""
-    load_stacked(STATE_PREFIXES["params"], arrays, params)
-    load_stacked(STATE_PREFIXES["mu"], arrays, mu)
-    load_stacked(STATE_PREFIXES["nu"], arrays, nu)
+    place; returns its step. ``block`` as in :func:`load_stacked`."""
+    load_stacked(STATE_PREFIXES["params"], arrays, params, block)
+    load_stacked(STATE_PREFIXES["mu"], arrays, mu, block)
+    load_stacked(STATE_PREFIXES["nu"], arrays, nu, block)
     if err is not None:
-        load_stacked(STATE_PREFIXES["err"], arrays, err)
+        load_stacked(STATE_PREFIXES["err"], arrays, err, block)
     if STEP_KEY not in arrays:
         raise KeyError(f"checkpoint missing leaf {STEP_KEY}")
     return int(arrays[STEP_KEY])
 
 
 __all__ = ["reference_path", "stacked_shapes", "from_reference_params",
+           "reference_specs", "shard_params", "gather_params",
            "reference_key", "to_numpy", "from_numpy", "stacked_arrays",
            "load_stacked", "train_state_arrays", "train_state_keys",
            "load_train_state_arrays",

@@ -16,9 +16,13 @@ checkpoint written by either package restores in the other::
 * **Data cursor**: the pipeline is a pure function of the step, so the
   manifest's ``step`` alone resumes the token order.
 
-The arrays are saved gathered on the host. The reference's re-layout onto
-another mesh on restore (``shardings=``) waits for the sharded port
-(ROADMAP A18).
+* **Elastic re-layout**: the arrays are saved whole (gathered on the
+  host). ``restore_checkpoint(..., shardings=(plan, mesh))`` lays them out
+  for the mesh the job restarted with: each rank reads every array,
+  checks its hash and keeps its block of each leaf by the leaf's spec
+  (``sharding.local_block``), so a template of a sharded model's blocks
+  restores from any checkpoint of the same model. Saving from a sharded
+  train state waits for ROADMAP 18d-2.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..models.sharding import local_block, mesh_axis_sizes, mesh_coords
 from ..models.weights import (load_train_state_arrays, train_state_arrays,
                               train_state_keys)
 from .train_step import TrainState
@@ -81,14 +86,36 @@ def latest_step(directory: str | Path) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _blocks(template: TrainState, shardings):
+    """The ``block`` cut of ``load_stacked`` for ``shardings = (plan,
+    mesh)``: each layer of a leaf cut to this rank's block by the spec of
+    the parameter of the same name (moments and error feedback take
+    their parameter's)."""
+    plan, mesh = shardings
+    sizes, coords = mesh_axis_sizes(mesh), mesh_coords(mesh)
+    specs = {}
+    for name, p in template.params.items():
+        if not hasattr(p, "axes"):
+            raise ValueError(f"template parameter {name} records no axes; "
+                             "restore into a model built by build_model")
+        specs[name] = plan.P(*p.axes)
+
+    def block(name, part):
+        return part[local_block(part.shape, specs[name], sizes, coords)]
+    return block
+
+
 def restore_checkpoint(directory: str | Path, template: TrainState,
-                       step: Optional[int] = None, verify: bool = True
-                       ) -> Tuple[TrainState, dict]:
+                       step: Optional[int] = None, shardings=None,
+                       verify: bool = True) -> Tuple[TrainState, dict]:
     """Restore into ``template``'s tensors, in place (their devices and
     dtypes kept), and return it with its step and the manifest.
 
-    Raises ``IOError`` where a leaf's SHA1 differs from the manifest's,
-    ``KeyError`` for a missing leaf, ``ValueError`` for a shape mismatch.
+    ``shardings``: ``(plan, mesh)`` where the template holds a sharded
+    model's blocks; each rank keeps its block of every saved (whole)
+    leaf. Raises ``IOError`` where a leaf's SHA1 differs from the
+    manifest's, ``KeyError`` for a missing leaf, ``ValueError`` for a
+    shape mismatch.
     """
     directory = Path(directory)
     if step is None:
@@ -108,9 +135,10 @@ def restore_checkpoint(directory: str | Path, template: TrainState,
                     arr.tobytes()).hexdigest():
                 raise IOError(f"checkpoint corruption detected at leaf {k}")
             arrays[k] = arr
-    opt_step = load_train_state_arrays(arrays, template.params,
-                                       template.opt.mu, template.opt.nu,
-                                       template.err)
+    opt_step = load_train_state_arrays(
+        arrays, template.params, template.opt.mu, template.opt.nu,
+        template.err,
+        block=None if shardings is None else _blocks(template, shardings))
     state = TrainState(params=template.params,
                        opt=template.opt._replace(step=opt_step),
                        err=template.err)

@@ -11,6 +11,10 @@ the checkpoint format and the deterministic data order, lives in
   continues the loss trajectory bit for bit.
 * **Checkpoint cadence**: :func:`suggest_cadence` is the Young/Daly
   approximation sqrt(2 · MTBF · write time).
+* **Elastic re-mesh**: a restart may come up on another mesh;
+  ``restore_checkpoint(..., shardings=(plan, mesh))`` lays the saved
+  (whole) arrays out for it, each rank keeping its blocks. The step
+  cursor does not depend on the mesh, so training is unchanged.
 * **Stragglers**: :class:`StepWatchdog` flags a step slower than
   ``factor`` times the trailing median.
 """

@@ -249,7 +249,7 @@ def test_run_config_fields_by_family():
     for fam in ("dense", "moe", "ssm", "encdec", "vlm"):
         with pytest.raises(ValueError, match="ssd_chunk the hybrid"):
             RunConfig(ssd_chunk=16).check(fam)
-    with pytest.raises(ValueError, match="A18d"):
+    with pytest.raises(NotImplementedError, match="18d-2"):
         RunConfig(mesh=object()).check("ssm")
     cfg = get_smoke("rwkv6-1.6b")
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
