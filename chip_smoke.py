@@ -83,14 +83,14 @@ Phases, in order; any failure raises and exits non-zero:
    graph, key and method, 64 equal to the CPU (precluster against
    ``precluster_host``), requests/s, flush wall p50/p99, cache hits and
    single-flight riders; the same trace on the sync executor (walls A B
-   against async) and its first 1,024 under ``policy='coalesce'``; 256
+   against async) and its first 512 under ``policy='coalesce'``; 256
    requests under
    ``objective='minmax'`` on the async and the sharded (one device)
    executors, against the batch path; ``submit``'s return time on the
    R = 2¹⁵ pivot bucket; the card's busy share over a traced pass;
 6. LM serving path: smollm-135m at full width, f32 weights from a
    ``torch.Generator`` seeded with ``--seed``, serving 8 requests (4 with
-   4–23-token prompts, 4 with 512–2000, up to 32 new tokens each) through
+   4–23-token prompts, 4 with 512–2000, up to 8 new tokens each) through
    ``ContinuousBatcher`` (4 slots, cache_len 2048) and ``serve_all``, with
    every launch count zeroed just before and read just after: (e) every
    request done, B4 launched 30 times per prefill, prefill and decode
@@ -118,7 +118,7 @@ Phases, in order; any failure raises and exits non-zero:
    of the augmenting matching equal, the approx/exact cost ratio); (f)
    ``cliques`` on 8,000 disjoint cliques plus noise; walls per method;
 8. the near-duplicate dedup path (``repro_torch.data.dedup``) on a
-   synthetic corpus of 10,000 documents (the reference test's recipe:
+   synthetic corpus of 5,000 documents (the reference test's recipe:
    lengths 64–256, 40 % near-duplicates at 5 % mutation, ``--seed``),
    threshold 0.45, best-of-4, each call's launch counts zeroed just before
    and read just after: (a) ``dedup_corpus_batched`` (B1 and B2 must
@@ -141,22 +141,22 @@ Phases, in order; any failure raises and exits non-zero:
    (``launch/roofline.py`` ``ell_kernel_roofline``); per bucket and tier
    the winner, the default's and the winner's device time (CUDA events);
    a second cache loaded from the file makes no sweep and hits every
-   entry; the first 1,024 requests of phase 5's trace served untuned and
+   entry; the first 256 requests of phase 5's trace served untuned and
    tuned (sync executor, cost policy, A B B A), every tuned result equal to the untuned one, the
    program keys carrying the tuned plans, requests/s of each pass;
 10. the training path (``repro_torch.launch.train``): (a) ``run`` at
    smollm-135m's full width (30 layers, d = 576, vocabulary 49,152, f32
-   weights and AdamW state), 10 steps of 8 sequences of 1,024 tokens,
-   checkpoints every 5, the dedup stage on: its wall, median step ms,
+   weights and AdamW state), 6 steps of 8 sequences of 1,024 tokens,
+   the dedup stage on: its wall, median step ms,
    tokens/s, peak memory, B3's launches in the dedup stage and none of B4
    (training takes chunked attention; counts zeroed just before, read just
    after), then B3 on every route held to its plain version at the inputs
    the stage gave it (k = 4, n = 300) and the stage's kept documents,
    labels and batches held to the CPU's; the cost of deterministic mode (step ms with and without it,
-   A B B A) and the card's busy share over 3 traced steps; (b)
-   ``fail_at=5`` then ``resume``: losses 5–9 equal (a)'s bit for bit;
+   A B B A) and the card's busy share over a traced step; (b)
+   ``fail_at=3`` then ``resume``: losses 3–5 equal (a)'s bit for bit;
    (c) 2 full-width steps at ``accum_steps=2`` with compression, sequences
-   of 128, 4 a step, each from the CPU's state: loss within 1e-5 and
+   of 64, 4 a step, each from the CPU's state: loss within 1e-5 and
    grad_norm within 1e-3 of the CPU's; (d) B4 refuses q, k, v that require
    grad; (e) ``launch/cluster_dryrun.run`` at n = 2¹⁷ with its byte and
    time model; (f) every module of ``repro_torch.examples`` on the card;
@@ -185,7 +185,7 @@ Phases, in order; any failure raises and exits non-zero:
    spills of that instance;
 12. the other model families (``repro_torch.configs``), each at its
    published widths with f32 weights drawn on the card from ``--seed`` and
-   freed before the next: (a) rwkv6-1.6b (12 of its 24 layers,
+   freed before the next: (a) rwkv6-1.6b (6 of its 24 layers,
    attention-free, the
    exact RWKV scan in prefill as the serving launcher sets it) and
    zamba2-2.7b (54 Mamba2 layers, the shared attention block after every
@@ -236,8 +236,36 @@ Phases, in order; any failure raises and exits non-zero:
    a prefill; (c) B4 at the local-head instance (1, 8, 8, S, S, 128) at
    the longest served prompt, timed with its bound, SDPA's time and
    ptxas's registers and spills;
-14. summary: a ``sharding``, a ``families``, an ``lm_configs``, a
-   ``training`` and a ``tuning`` JSON line, the card line, a ``kernels`` JSON line
+14. training every family and the sharded train step
+   (``repro_torch.launch.train``, ``train/``, ``models/parallel.py``), f32,
+   deterministic algorithms: (f) rwkv6-1.6b (4 x 1,024 tokens a step),
+   zamba2-2.7b (2 x 512) and whisper-base (8 x 1,024, zero stub frames) at
+   their published widths and full depth through ``launch.train.run``,
+   weights drawn on the card, the dedup stage on (B3 launched, B4 not), 2
+   steps, then a fail at 1 and a resume equal bit for bit to an
+   uninterrupted run (rwkv6 at 1 layer, zamba2 at one group of 2 Mamba2
+   layers and the shared block, whisper at full depth: a full-depth
+   checkpoint is 19 or 29 GB): step ms, tokens/s, peak memory; each
+   family's smoke config, 2 steps on the card against the CPU from the
+   same state (loss 1e-5, grad_norm 1e-3, relative); (g) smollm-135m at
+   full width, 8 x 1,024 tokens, 3 steps: the unsharded step and one NCCL
+   rank on (data 1, model 1) (bit for bit), then two gloo ranks of the one
+   card on (2, 1) (ZeRO, data-parallel, gradients reduce-scattered; its
+   checkpoint saved from the shards against the arrays a (1, 1) save
+   writes) and (1, 2) (SwiGLU and vocabulary tensor-parallel, attention
+   replicated; its gathered params and moments at seeded positions), each
+   against (1, 1) (losses 1e-5, grad_norm 1e-3, relative, the state within
+   the stated bounds), the (2, 1) checkpoint restored into the unsharded
+   model; collective
+   calls and bytes a step by kind, state bytes a rank, peaks; (h)
+   olmoe-1b-7b at its published widths cut to 2 layers, 'sort' on the
+   expert-parallel plan, 2 steps of 8 x 1,024 tokens on (1, 1) and (1, 2):
+   losses and grad_norm as (g), params and moments at seeded positions,
+   the first step's routing (router logits, experts at clear decisions,
+   drops);
+15. summary: a ``train_families``, a ``sharding``, a ``families``, an
+   ``lm_configs``, a ``training`` and a ``tuning`` JSON line, the card
+   line, a ``kernels`` JSON line
    (B1, B2, B3 as the fused kernel and as the window mode, B4, the
    agreement kernel with its route, replicas and both bounds; B1 also on
    the agreement graphs, B4 also at head dims 80 and 160 off the path and
@@ -246,7 +274,8 @@ Phases, in order; any failure raises and exits non-zero:
    the tuned winner beside the default; B3's with its launches and its
    check in the training launcher's dedup stage; B4 also at each phase-12
    instance with its launches there, and at phase 13's local-head
-   instance with its launches on a rank), and last
+   instance with its launches on a rank; B3's also with its launches in
+   each family's training dedup stage), and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero with no
@@ -1044,7 +1073,7 @@ def real_bucket_rows(bench, args):
     return rows
 
 
-def breakdown(graphs, lams, card, nm, n_trace=256):
+def breakdown(graphs, lams, card, nm, n_trace=128):
     """Where a warm pass spends its time: host seconds per layer (cProfile
     over the whole pass), the card's busy share and B1's and B2's device
     time (profiler trace of a pass over the first ``n_trace`` graphs).
@@ -1113,7 +1142,10 @@ SERVE_MAX_WAIT = 0.02        # seconds an admitted request may wait
 SERVE_SUBSET = 256           # requests of the minmax and sharded engines
 # Requests of the trace under the coalescing policy (a prefix: the
 # smoke's time is short).
-SERVE_COALESCE_REQUESTS = 1024
+SERVE_COALESCE_REQUESTS = 512
+# Requests of the traced pass that reads the card's busy share: a prefix,
+# as the smoke's time is short.
+SERVE_TRACED_REQUESTS = 128
 SERVE_CPU_CHECKS = 64
 # Layers of a serving pass, by function, for its host-time split.
 SERVE_LAYERS = ("admit", "plan_graph", "graph_fingerprint",
@@ -1537,10 +1569,12 @@ def serving_phase(dev, card, seed, bench, ag_base=None):
     print(f"      sync pass over 512 requests under cProfile {wall:.3f} s; "
           "cumulative host s per layer: " + ", ".join(
               f"{k} {v:.3f}" for k, v in split.items()))
-    # The card's busy share over a traced pass of the first 512 requests.
+    # The card's busy share over a traced pass of the first
+    # SERVE_TRACED_REQUESTS requests.
     t0 = time.perf_counter()
     events = device_events(lambda: serve_pass(
-        rows, graphs, lams, dev, pick=range(min(512, len(rows))),
+        rows, graphs, lams, dev, pick=range(min(SERVE_TRACED_REQUESTS,
+                                                len(rows))),
         executor="async", policy="cost"))
     traced = time.perf_counter() - t0
     if events is None:
@@ -1552,7 +1586,8 @@ def serving_phase(dev, card, seed, bench, ag_base=None):
                                                "label_agree"))}
         record.update(traced_wall_s=traced, device_busy_s=busy,
                       traced_ell_ms=ell_ms)
-        print(f"      traced pass over 512 requests: device busy "
+        print(f"      traced pass over {SERVE_TRACED_REQUESTS} requests: "
+              f"device busy "
               f"{busy:.3f} s of {traced:.3f} s ({100 * busy / traced:.1f} "
               f"%), B1 {ell_ms[B1_B2[0]]:.3f} ms, B2 "
               f"{ell_ms[B1_B2[1]]:.3f} ms  [{card}]")
@@ -1561,8 +1596,14 @@ def serving_phase(dev, card, seed, bench, ag_base=None):
     return record
 
 
+# New tokens a served request asks for: at most SERVE_MAX_NEW - 1. Decode
+# is host-bound and its steps take most of phases 6 and 11-13, so 8 keeps
+# the smoke within its time.
+SERVE_MAX_NEW = 9
+
+
 def serving_requests(rng, vocab_size, cache_len, pairs=4,
-                     long_prompt=(512, 2001), max_new=33):
+                     long_prompt=(512, 2001), max_new=SERVE_MAX_NEW):
     """``pairs`` short prompts as the reference driver draws them (4–23
     tokens) alternating with long ones (512–2000); 2 to ``max_new - 1``
     new tokens each, prompt plus new tokens within ``cache_len``."""
@@ -2180,9 +2221,9 @@ FAMILY_DIRECT = ("whisper-base", "llama-3.2-vision-90b")
 # reference's param_count); at its published widths cut to 10 layers (2
 # groups of 4 self layers and a cross layer) it holds 39.7 GiB.
 VLM_SERVED_LAYERS = 10
-# rwkv6-1.6b serves 12 of its 24 layers: its prefill runs the exact scan,
+# rwkv6-1.6b serves 6 of its 24 layers: its prefill runs the exact scan,
 # a few host launches a token and layer, and the smoke's time is short.
-RWKV_SERVED_LAYERS = 12
+RWKV_SERVED_LAYERS = 6
 # The CPU comparison (d): each family's cut, drawn on the card and copied
 # to the host (None: the whole model), and its long prompt.
 FAMILY_CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-2.7b": 6, "whisper-base": None,
@@ -2767,7 +2808,7 @@ def dist_world_one(dev, card, rng, rec):
 # The near-duplicate dedup path (phase 8): the reference test's recipe
 # (tests/test_data.py:29-36) at a corpus a pipeline stage runs; its
 # quality, O(n²) host Python, on a smaller corpus of the same recipe.
-DEDUP_DOCS = 10_000
+DEDUP_DOCS = 5_000
 DEDUP_QUALITY_DOCS = 2_000
 DEDUP_RECIPE = dict(doc_len=(64, 256), dup_fraction=0.4, mutate_p=0.05)
 DEDUP_THRESHOLD = 0.45
@@ -3006,7 +3047,7 @@ def dedup_phase(dev, card, seed):
 
 # Requests of phase 5's trace served untuned and tuned, A B B A, in
 # phase 9 (a prefix: the smoke's time is short).
-AUTOTUNE_ABBA_REQUESTS = 1024
+AUTOTUNE_ABBA_REQUESTS = 256
 
 
 def autotune_phase(dev, card, seed):
@@ -3154,16 +3195,16 @@ def autotune_phase(dev, card, seed):
 # launcher's full-size settings (chunked attention, loss chunks of 256), 8
 # sequences of 1,024 tokens a step.
 TRAIN_ARCH = "smollm-135m"
-TRAIN_STEPS = 10
+TRAIN_STEPS = 6
 TRAIN_SEQ = 1024
 TRAIN_BATCH = 8
-TRAIN_FAIL_AT = 5
-TRAIN_TRACED_STEPS = 3
-TRAIN_TIMED_STEPS = 3
+TRAIN_FAIL_AT = 3
+TRAIN_TRACED_STEPS = 1
+TRAIN_TIMED_STEPS = 2
 # (c) against the CPU: the CPU tests' tolerances (tests/test_torch_train.py):
 # the loss to 1e-5, grad_norm to 1e-3 with compression (a value near a
 # half quantum may round either way).
-TRAIN_CPU_SEQ = 128
+TRAIN_CPU_SEQ = 64
 TRAIN_CPU_BATCH = 4
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GNORM_TOL = 1e-3
@@ -3278,8 +3319,8 @@ def training_phase(dev, card, seed, b3bench):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with KeepB3Calls() as kept:
-            whole = train.run(ckpt_dir=str(tmp / "a"), resume=False,
-                              fail_at=None, ckpt_every=5, **common)
+            whole = train.run(ckpt_dir=None, resume=False, fail_at=None,
+                              **common)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         b3 = mis_pivot.launches["mis_pivot"]
@@ -3293,7 +3334,6 @@ def training_phase(dev, card, seed, b3bench):
                                  f"(want >= 1 and 0)")
         if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
             raise AssertionError(f"(a) losses {losses}")
-        shutil.rmtree(tmp / "a")
         rec.update(wall_s=wall, losses=losses, step_s=whole["step_s"],
                    median_step_ms=step_ms,
                    tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
@@ -3311,7 +3351,7 @@ def training_phase(dev, card, seed, b3bench):
             b3bench, kept.calls, get_config(TRAIN_ARCH), dev, card, seed)
         del kept
 
-        # (b) Fail at step 10, resume: the same losses bit for bit.
+        # (b) Fail at step 3, resume: the same losses bit for bit.
         with contextlib.redirect_stdout(io.StringIO()):
             try:
                 train.run(ckpt_dir=str(tmp / "b"), resume=False,
@@ -4009,6 +4049,731 @@ def shard_phase(dev, card, seed, abench, rng, ptxas, unsharded):
     return out, kernel
 
 
+# Phase 14: training every family and the sharded train step. (f)
+# rwkv6-1.6b, zamba2-2.7b and whisper-base through launch.train.run at
+# their published widths and full depth (weights drawn on the card from
+# --seed, AdamW, the dedup stage on: B3 launched, B4 not), FAMILY_TRAIN
+# sequences x tokens a step: the most that fits the card beside AdamW
+# (rwkv6 at 8 x 1,024 and zamba2 at 2 x 1,024 ran out of memory; whisper
+# at phase 10's 8 x 1,024), FAMILY_TRAIN_STEPS steps; then a fail at
+# FAMILY_TRAIN_FAIL_AT and a resume equal bit for bit to an uninterrupted
+# run, at FAMILY_RESTART's depth; then the four families' smoke configs, 2
+# steps on the card against the CPU from the same state (phase 10's 1e-5
+# loss, 1e-3 grad_norm, relative). (g) smollm-135m at full width, phase
+# 10's 8 x 1,024 tokens and optimizer, SHARD_TRAIN_STEPS steps: the
+# unsharded step and one NCCL rank on (1, 1) (every collective a counted
+# pass-through; the same operations, so bit for bit equal), then two gloo
+# ranks of the one card on (2, 1) (ZeRO rows over data, data-parallel,
+# gradients reduce-scattered), its checkpoint saved from the shards, and
+# on (1, 2) (the SwiGLU and the vocabulary split, attention replicated: 9
+# heads on 2), its params and moments read at STATE_SAMPLES seeded positions
+# a leaf: losses within 1e-5 and grad_norm within 1e-3 of (1, 1)'s
+# (relative, phase 10's), the (2, 1) checkpoint against the arrays a
+# (1, 1) save writes and the (1, 2) positions against (1, 1)'s, within the
+# bounds below; the (2, 1) checkpoint restored into an unsharded model.
+# (h) olmoe-1b-7b at its published widths cut to MOE_TRAIN_LAYERS of 16
+# layers, 'sort' on the expert-parallel plan, MOE_TRAIN_STEPS steps of 8 x
+# 1,024 tokens on (1, 1) and on (1, 2) (two gloo ranks, 32 experts each):
+# losses and grad_norm as (g), params and first moments at STATE_SAMPLES
+# seeded positions a leaf (MOE_MOMENT_TOL); the first step's router
+# logits within SHARD_ROUTER_TOL's prefill bound, the experts equal at
+# every clear decision of (1, 1)'s and the drops equal where all are
+# clear.
+FAMILY_TRAIN = {"rwkv6-1.6b": (4, 1024), "zamba2-2.7b": (2, 512),
+                "whisper-base": (8, 1024)}
+FAMILY_TRAIN_STEPS = 2
+FAMILY_TRAIN_FAIL_AT = 1
+# The restart's depth, at the published widths (config fields replaced):
+# a checkpoint holds 12 bytes a weight (weights and two f32 moments), 19 GB
+# for rwkv6-1.6b and 29 GB for zamba2-2.7b at full depth, and writing,
+# hashing, reading and checking one took ~9.5 s a GB on an NVIDIA H100
+# 80GB HBM3 host, more than the smoke's time. One RWKV layer, and one
+# group of two Mamba2 layers and the shared attention block, keep every
+# kind of leaf; whisper-base restarts at full depth.
+FAMILY_RESTART = {"rwkv6-1.6b": {"num_layers": 1},
+                  "zamba2-2.7b": {"num_layers": 2, "attn_every": 2},
+                  "whisper-base": {}}
+FAMILY_SMOKE_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b", "whisper-base",
+                      "llama-3.2-vision-90b")
+FAMILY_SMOKE_SHAPE = (2, 64)
+SHARD_TRAIN_ARCH = "smollm-135m"
+SHARD_TRAIN_STEPS = 3
+MOE_TRAIN_ARCH = "olmoe-1b-7b"
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 2
+MOE_TRAIN_SHAPE = (8, 1024)
+STATE_SAMPLES = 65536
+TRAIN_OC = dict(lr=1e-3, warmup_steps=5, total_steps=20)   # phase 10's
+# A sharded step sums its gradients in another order than one rank's, so
+# a gradient whose true value is near zero may change sign; Adam's update
+# of that weight is then ~±lr (its first update is the gradient's sign),
+# so a weight may move by up to 2·lr a step, lr summed over the steps. All
+# other elements stay within 1e-4 of their leaf's largest value; at most
+# SHARD_PARAM_SHARE of a leaf's elements may lie past that (the CPU
+# tests' bounds, tests/test_torch_train.py). A moment follows its
+# gradient: within 1e-3 of its leaf's largest value.
+SHARD_PARAM_SHARE = 1e-3
+SHARD_MOMENT_TOL = 1e-3
+# (h): a token whose routing parts at an unclear top-k decision (the two
+# runs' router logits ~1e-6 apart) takes other experts, which moves the
+# gradient of every leaf its activations reach: on an NVIDIA H100 80GB
+# HBM3 (700 W) the final norm's first moment moved by 0.6 % of its largest
+# value, so the moments are held to 2 % and the params to the Adam bound.
+MOE_MOMENT_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def _launcher_depth(fields):
+    """While active, ``launch.train`` builds its configs with ``fields``
+    replaced (a depth cut at the published widths)."""
+    from repro_torch.launch import train
+
+    inner = train.get_config
+    if fields:
+        train.get_config = lambda arch: dataclasses.replace(inner(arch),
+                                                            **fields)
+    try:
+        yield
+    finally:
+        train.get_config = inner
+
+
+def family_training(arch, dev, card, seed):
+    """(f) One family through ``launch.train.run`` at full width and
+    depth; then fail and resume at FAMILY_RESTART's depth, against an
+    uninterrupted run at that depth. Returns the record."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, mis_pivot
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train.fault import SimulatedFailure
+
+    b, s = FAMILY_TRAIN[arch]
+    n_weights = sum(p.numel() for p in build_model(
+        get_config(arch), device="meta").parameters())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ftrain_"))
+    common = dict(arch=arch, smoke=False, seq_len=s, global_batch=b,
+                  steps=FAMILY_TRAIN_STEPS, dedup=True, seed=seed,
+                  log_every=100, device=dev)
+    k = FAMILY_TRAIN_FAIL_AT
+    fields = FAMILY_RESTART[arch]
+    try:
+        mis_pivot.reset_launch_counts()
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            whole = train.run(ckpt_dir=None, resume=False, fail_at=None,
+                              **common)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        b3 = mis_pivot.launches["mis_pivot"]
+        b4 = fa.launches["flash_attention"]
+        losses = whole["losses"]
+        if not (len(losses) == FAMILY_TRAIN_STEPS
+                and np.isfinite(losses).all()):
+            raise AssertionError(f"(14f) {arch} losses {losses}")
+        if dev.type == "cuda" and (b3 < 1 or b4 != 0):
+            raise AssertionError(f"(14f) {arch}: B3 launched {b3} times, B4 "
+                                 f"{b4} (want >= 1 and 0)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                _launcher_depth(fields):
+            want = losses if not fields else train.run(
+                ckpt_dir=None, resume=False, fail_at=None, **common)["losses"]
+            try:
+                train.run(ckpt_dir=str(tmp), resume=False, fail_at=k,
+                          ckpt_every=k, **common)
+            except SimulatedFailure:
+                pass
+            else:
+                raise AssertionError(f"(14f) {arch}: --fail-at raised "
+                                     "nothing")
+            ckpt_bytes = sum(f.stat().st_size for f in tmp.rglob("*")
+                             if f.is_file())
+            torch.cuda.empty_cache()
+            resumed = train.run(ckpt_dir=str(tmp), resume=True, fail_at=None,
+                                ckpt_every=k, **common)
+        restart_s = time.perf_counter() - t0
+        if resumed["losses"] != want[k:]:
+            raise AssertionError(f"(14f) {arch}: resumed losses "
+                                 f"{resumed['losses']} differ from "
+                                 f"{want[k:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    # The first step also warms the card's kernels up; the others time it.
+    step_ms = float(np.median(whole["step_s"][1:])) * 1e3
+    depth = ("full depth" if not fields else ", ".join(
+        f"{k} {v}" for k, v in fields.items()))
+    rec = dict(batch=b, seq=s, steps=FAMILY_TRAIN_STEPS, wall_s=wall,
+               losses=losses, step_s=whole["step_s"], median_step_ms=step_ms,
+               tokens_per_s=b * s / step_ms * 1e3, peak_bytes=peak,
+               weights=n_weights, state_bytes=16 * n_weights,
+               b3_launches_dedup=b3, b4_launches=b4, restart_bitwise=True,
+               restart_depth=depth, restart_s=restart_s,
+               checkpoint_bytes=ckpt_bytes)
+    print(f"  (14f) {arch} full width and depth ({n_weights} weights, "
+          f"{16 * n_weights / 2**30:.1f} GiB with AdamW), {b} x {s} tokens, "
+          f"{FAMILY_TRAIN_STEPS} steps: wall {wall:.2f} s, median step "
+          f"{step_ms:.2f} ms ({rec['tokens_per_s']:.1f} tokens/s), peak "
+          f"{peak / 2**30:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f};"
+          f" B3 {b3}, B4 {b4}; at {depth}, fail at {k} + resume bit for bit "
+          f"({ckpt_bytes} checkpoint bytes, {restart_s:.1f} s)  [{card}]")
+    return rec
+
+
+def _carry_state(dst, src):
+    """Copy the train state ``src`` into ``dst``'s tensors (any devices);
+    returns ``dst`` with ``src``'s step."""
+    with torch.no_grad():
+        for n, t in dst.params.items():
+            t.copy_(src.params[n])
+        for part in ("mu", "nu"):
+            for n, t in getattr(dst.opt, part).items():
+                t.copy_(getattr(src.opt, part)[n])
+    return dst._replace(opt=dst.opt._replace(step=src.opt.step))
+
+
+def family_smoke_against_cpu(dev, card, seed):
+    """(f) Each family's smoke config, the launcher's smoke settings, two
+    steps on the card and on the CPU, each from the CPU's state, with
+    stub embeddings drawn from the seed."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer, train_step
+
+    b, s = FAMILY_SMOKE_SHAPE
+    out = {}
+    for arch in FAMILY_SMOKE_ARCHS:
+        cfg = get_smoke(arch)
+        rc = train.run_config(cfg, True, s)
+        oc = optimizer.OptConfig(**TRAIN_OC)
+        sides = {}
+        for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            model = build_model(cfg, device=d, rc=rc,
+                                generator=torch.Generator().manual_seed(seed))
+            sides[side] = [train_step.init_train_state(model, oc),
+                           train_step.make_train_step(model, oc)]
+        rng = np.random.default_rng([seed, 14, FAMILY_SMOKE_ARCHS.index(
+            arch)])
+        rows = []
+        for i in range(2):
+            sides["card"][0] = _carry_state(sides["card"][0],
+                                            sides["cpu"][0])
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+                     "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+            batch = {k: torch.from_numpy(v.astype(np.int32))
+                     for k, v in batch.items()}
+            for key, stub in stub_inputs(cfg, rng,
+                                         torch.device("cpu")).items():
+                batch[key] = stub.expand(b, *stub.shape[1:]).contiguous()
+            sides["cpu"][0], want = sides["cpu"][1](sides["cpu"][0], batch)
+            with train.deterministic(dev):
+                sides["card"][0], got = sides["card"][1](
+                    sides["card"][0], {k: v.to(dev) for k, v in batch.items()})
+            row = {k: (float(got[k]), float(want[k]))
+                   for k in ("loss", "grad_norm", "lr")}
+            for k, tol in (("loss", TRAIN_LOSS_TOL),
+                           ("grad_norm", TRAIN_GNORM_TOL)):
+                g, w = row[k]
+                if not abs(g - w) <= tol * abs(w):
+                    raise AssertionError(f"(14f) {arch} smoke step {i} {k}: "
+                                         f"card {g}, CPU {w} (tolerance "
+                                         f"{tol} relative)")
+            if row["lr"][0] != row["lr"][1]:
+                raise AssertionError(f"(14f) {arch} smoke step {i} lr "
+                                     f"{row['lr']}")
+            rows.append(row)
+        out[arch] = rows
+        print(f"  (14f) {arch} smoke, 2 steps against the CPU: loss "
+              + ", ".join(f"{r['loss'][0]:.6f} / {r['loss'][1]:.6f}"
+                          for r in rows) + "; grad_norm "
+              + ", ".join(f"{r['grad_norm'][0]:.5f} / {r['grad_norm'][1]:.5f}"
+                          for r in rows) + f"  [{card}]")
+    return out
+
+
+def _smollm_batches(cfg, seed, n):
+    from repro_torch.launch import train
+
+    pipe = train.build_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, dedup=False,
+                                seed=seed, device="cpu")
+    return [{k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
+            for i in range(n)]
+
+
+def _moe_batches(cfg, seed, n):
+    b, s = MOE_TRAIN_SHAPE
+    rng = np.random.default_rng([seed, 14, 8])
+    return [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)
+                                              ).astype(np.int32))
+             for k in ("tokens", "labels")} for _ in range(n)]
+
+
+def _moe_cfg(smoke):
+    from repro_torch.configs import get_config, get_smoke
+
+    cfg = (get_smoke if smoke else get_config)(MOE_TRAIN_ARCH)
+    return dataclasses.replace(cfg, num_layers=min(cfg.num_layers,
+                                                   MOE_TRAIN_LAYERS))
+
+
+def _samples(state, seed, layout=None, specs=None) -> dict:
+    """Each parameter's and first moment's values at STATE_SAMPLES positions
+    of the whole leaf drawn from ``seed`` and the leaf's order (the same on
+    every side and mesh), on the host. On a mesh (``layout``, the leaves'
+    ``specs``) each rank reads the positions inside its block, zeros
+    elsewhere, summed over the leaf's split axes: the whole leaves are
+    never gathered."""
+    from repro_torch.models.sharding import entry_axes
+    from repro_torch.train.optimizer import sharded_axes
+
+    out = {}
+    for i, (name, t) in enumerate(state.params.items()):
+        spec = specs[name] if layout is not None else ()
+        spans = [layout.span(entry_axes(spec[d])) if d < len(spec) else 1
+                 for d in range(t.dim())] if layout is not None else \
+            [1] * t.dim()
+        whole = [n * k for n, k in zip(t.shape, spans)]
+        numel = int(np.prod(whole))
+        flat = np.random.default_rng([seed, 14, 9, i]).integers(
+            0, numel, min(numel, STATE_SAMPLES))
+        pos = np.unravel_index(flat, whole)
+        inside = np.ones(flat.shape, bool)
+        local = []
+        for d, (n, k) in enumerate(zip(t.shape, spans)):
+            first = (layout.index(entry_axes(spec[d])) * n
+                     if layout is not None and d < len(spec) else 0)
+            inside &= (pos[d] >= first) & (pos[d] < first + n)
+            local.append(np.clip(pos[d] - first, 0, n - 1))
+        keep = torch.from_numpy(inside)
+        for part, src in (("params", t), ("mu", state.opt.mu[name])):
+            idx = tuple(torch.from_numpy(a).to(src.device) for a in local)
+            vals = torch.where(keep.to(src.device), src.detach()[idx],
+                               torch.zeros((), dtype=src.dtype,
+                                           device=src.device))
+            ax = sharded_axes(layout, spec) if layout is not None else ()
+            if ax:
+                vals = layout.all_reduce(vals, ax)
+            out[f"{part}:{name}"] = vals.cpu()
+    return out
+
+
+def _train_on_mesh(cfg, dev, seed, axes, batches, rc_fields=None,
+                   ckpt=None, log=None, gather=None):
+    """Train ``cfg`` ``len(batches)`` steps from weights drawn on ``dev``
+    from ``seed``, on the mesh ``axes`` of the
+    initialised group (None: unsharded), under deterministic algorithms.
+    Returns the record: losses, grad_norms, lrs, step walls, the last
+    step's collective calls and bytes by kind, the rank's state bytes,
+    the peak; ``ckpt``: the final state saved there (from the shards);
+    ``gather``: 'state' keeps the final state, 'samples' its
+    :func:`_samples`; ``log`` (a RouterLog) keeps the first step's router
+    calls."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, parallel
+    from repro_torch.models.sharding import resolve_plan
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.train.checkpoint import save_checkpoint
+
+    kw = {}
+    if axes is not None:
+        mesh = make_mesh(axes)
+        kw = dict(plan=resolve_plan(cfg, None, axes), mesh=mesh)
+    rc = RunConfig(attn_impl="chunked",
+                   loss_chunk=min(256, batches[0]["tokens"].shape[1]),
+                   **(rc_fields or {}))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, rc=rc,
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        **kw)
+    oc = optimizer.OptConfig(**TRAIN_OC)
+    state = train_step.init_train_state(model, oc)
+    step_fn = train_step.make_train_step(model, oc)
+    rec = {"losses": [], "grad_norms": [], "lrs": [], "step_s": []}
+    with train.deterministic(dev):
+        for i, batch in enumerate(batches):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            parallel.reset_counts()
+            with (log if log is not None and i == 0 else nullcontext()):
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch)
+                rec["losses"].append(float(m["loss"]))
+                rec["step_s"].append(time.perf_counter() - t0)
+            rec["grad_norms"].append(float(m["grad_norm"]))
+            rec["lrs"].append(float(m["lr"]))
+            rec["collectives"] = parallel.snapshot()
+    rec["state_bytes"] = sum(t.numel() * t.element_size() for part in (
+        state.params, state.opt.mu, state.opt.nu) for t in part.values())
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    if ckpt is not None:
+        save_checkpoint(ckpt, len(batches), state, layout=model.layout)
+    if gather == "state":
+        rec["state"] = state
+    elif gather == "samples":
+        rec["samples"] = _samples(state, seed, model.layout,
+                                  model.param_specs())
+    if log is not None:
+        rec["router"] = [{k: v.detach().cpu() if torch.is_tensor(v) else v
+                          for k, v in c.items()} for c in log.take()]
+    return rec
+
+
+def _collective_line(rec) -> str:
+    return ", ".join(f"{k} {v['calls']} ({v['bytes']} B)"
+                     for k, v in rec["collectives"].items())
+
+
+def _train_meshes(ranks):
+    """(14g)'s meshes of ``ranks`` ranks, (data, model): ZeRO and data
+    parallel, then tensor parallel."""
+    return ((ranks, 1), (1, ranks))
+
+
+def _train_rank(rank, world, store, out_dir, seed, cfg, mcfg, dev_type,
+                backend):
+    """(14g)/(14h) one rank of ``world`` in a ``backend`` group, on card
+    ``rank`` modulo the cards there are, on the parent's batches: ``cfg``
+    (smollm) on each mesh of :func:`_train_meshes`, the first saving its
+    checkpoint from the shards, the second reading its state at
+    :func:`_samples`' positions; ``mcfg`` (the olmoe cut) on (1, world).
+    Records for the parent."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    dev = torch.device(dev_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        batches, mbatches = torch.load(os.path.join(out_dir, "batches.pt"))
+        out = {}
+        (d0, m0), (d1, m1) = _train_meshes(world)
+        out[f"{d0}x{m0}"] = _train_on_mesh(
+            cfg, dev, seed, {"data": d0, "model": m0}, batches,
+            ckpt=os.path.join(out_dir, f"ckpt_{d0}x{m0}"))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[f"{d1}x{m1}"] = _train_on_mesh(
+            cfg, dev, seed, {"data": d1, "model": m1}, batches,
+            gather="samples")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["moe"] = _train_on_mesh(
+            mcfg, dev, seed, {"data": 1, "model": world}, mbatches,
+            rc_fields={"moe_impl": "sort"},
+            log=RouterLog(1.25, logits=True), gather="samples")
+        torch.save(out, os.path.join(out_dir, f"train_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _within(a, b, bound, scale, share):
+    """(max difference, share of elements past 1e-4 of ``scale``); raises
+    where the max passes ``bound`` or the share ``share``."""
+    diff = (a.float() - b.float()).abs()
+    worst = float(diff.max()) if diff.numel() else 0.0
+    past = float((diff > 1e-4 * max(scale, 1e-3)).float().mean())
+    if not (worst <= bound + 1e-6 * max(scale, 1e-3) and past <= share):
+        raise AssertionError(f"max difference {worst} (bound {bound}), "
+                             f"{past} of the elements past 1e-4 of {scale}")
+    return worst, past
+
+
+def _compare_leaves(pairs, lr_sum, what):
+    """Each (part, key, got, want) of a sharded run against (1, 1): params
+    within 2·lr_sum and at most SHARD_PARAM_SHARE of a leaf past 1e-4 of
+    its largest value, moments within SHARD_MOMENT_TOL of it. Returns the
+    largest differences by part."""
+    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    for part, key, got, want in pairs:
+        scale = float(want.abs().max())
+        bound = (2.0 * lr_sum * 1.001 if part == "params"
+                 else SHARD_MOMENT_TOL * max(scale, 1e-3))
+        try:
+            w, _ = _within(got, want, bound, scale, SHARD_PARAM_SHARE)
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {key}: {e}") from None
+        worst[part] = max(worst[part], w)
+    return worst
+
+
+def _compare_arrays(got, want, lr_sum, what):
+    """A sharded run's checkpoint arrays against the arrays (1, 1)'s state
+    saves as, leaf by leaf (:func:`_compare_leaves`); the step equal."""
+    prefix = {".params": "params", ".opt/.mu": "mu", ".opt/.nu": "nu"}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: the checkpoints' keys differ")
+    pairs = []
+    for key, w in want.items():
+        part = next((v for p, v in prefix.items()
+                     if key.startswith(p + "/")), None)
+        if part is None:
+            if not np.array_equal(got[key], w):
+                raise AssertionError(f"{what}: {key} differs")
+            continue
+        pairs.append((part, key, torch.from_numpy(got[key]),
+                      torch.from_numpy(w)))
+    return _compare_leaves(pairs, lr_sum, what)
+
+
+def _against(rec, want, what, loss_tol=TRAIN_LOSS_TOL,
+             gnorm_tol=TRAIN_GNORM_TOL):
+    for k, tol in (("losses", loss_tol), ("grad_norms", gnorm_tol)):
+        for i, (g, w) in enumerate(zip(rec[k], want[k])):
+            if not abs(g - w) <= tol * abs(w):
+                raise AssertionError(f"{what} step {i} {k}: {g} against "
+                                     f"{w} (tolerance {tol} relative)")
+    if rec["lrs"] != want["lrs"]:
+        raise AssertionError(f"{what} lr {rec['lrs']} against {want['lrs']}")
+    return {"loss_err": max(abs(g - w) for g, w in zip(rec["losses"],
+                                                         want["losses"])),
+            "grad_norm_err": max(abs(g - w) for g, w in zip(
+                rec["grad_norms"], want["grad_norms"]))}
+
+
+def _print_mesh(label, rec, tokens, card, extra=""):
+    step_ms = float(np.median(rec["step_s"])) * 1e3
+    rec["median_step_ms"] = step_ms
+    rec["tokens_per_s"] = tokens / step_ms * 1e3
+    print(f"  {label}: median step {step_ms:.2f} ms "
+          f"({rec['tokens_per_s']:.1f} tokens/s), losses "
+          f"{[round(x, 6) for x in rec['losses']]}, state "
+          f"{rec['state_bytes']} B a rank, peak {rec['peak_bytes']} B; a "
+          f"step's collectives: {_collective_line(rec)}{extra}  [{card}]")
+
+
+def _moe_against(moe, moe_one, mcfg):
+    """(14h) the sharded olmoe against (1, 1): losses and grad_norm
+    (:func:`_against`); params within 2·lr summed (the bound any two Adam
+    runs keep) and moments within MOE_MOMENT_TOL at the sampled positions,
+    with the share of each leaf's samples past 1e-4 of its largest value
+    reported (a token whose routing parts at an unclear top-k decision
+    takes other experts, and its gradients move every leaf they reach);
+    the first step's router logits within SHARD_ROUTER_TOL's prefill
+    bound, the experts equal at every clear decision and the drops equal
+    where all are clear, the tokens that part counted."""
+    moe.update(_against(moe, moe_one, "(14h) (1, N)"))
+    lr_moe = sum(moe_one["lrs"])
+    worst = {"params": 0.0, "mu": 0.0}
+    share = {}
+    for key, want in moe_one["samples"].items():
+        part = key.split(":")[0]
+        scale = float(want.abs().max())
+        bound = (2.0 * lr_moe * 1.001 if part == "params"
+                 else MOE_MOMENT_TOL * max(scale, 1e-3))
+        try:
+            w, past = _within(moe["samples"][key], want, bound, scale, 1.0)
+        except AssertionError as e:
+            raise AssertionError(f"(14h) {key}: {e}") from None
+        worst[part] = max(worst[part], w)
+        share[key] = past
+    routing = {"router_err_prefill": 0.0, "router_err_decode": 0.0,
+               "decisions": 0, "unclear": 0, "dropped_cpu": 0,
+               "dropped_card": 0}
+    _routing_agrees(moe_one["router"], moe["router"], mcfg.experts_per_tok,
+                    routing, SHARD_ROUTER_TOL["prefill"])
+    parted = sum(int((~(a["experts"].sort(dim=-1).values
+                        == b["experts"].sort(dim=-1).values).all(dim=-1)
+                      ).sum())
+                 for a, b in zip(moe_one["router"], moe["router"]))
+    moe["samples_err"] = worst
+    moe["share_past"] = {k: v for k, v in share.items() if v > 0}
+    moe["routing"] = {"router_err": routing["router_err_prefill"],
+                      "decisions": routing["decisions"],
+                      "unclear": routing["unclear"], "parted": parted,
+                      "dropped_one_rank": routing["dropped_cpu"],
+                      "dropped_two_ranks": routing["dropped_card"]}
+    for r in (moe, moe_one):
+        del r["samples"], r["router"]
+
+
+def shard_training(dev, card, seed, smoke=False, ranks=2, backend="gloo"):
+    """(14g) and (14h): one rank and the unsharded model in this process,
+    then ``ranks`` spawned ranks in a ``backend`` group (gloo: all on the
+    one card; NCCL: one a card). Returns the record."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint, optimizer, train_step
+
+    cfg = (get_smoke if smoke else get_config)(SHARD_TRAIN_ARCH)
+    mcfg = _moe_cfg(smoke)
+    batches = _smollm_batches(cfg, seed, SHARD_TRAIN_STEPS)
+    mbatches = _moe_batches(mcfg, seed, MOE_TRAIN_STEPS)
+    tokens = batches[0]["tokens"].numel()
+    out: dict = {"ranks": ranks, "backend": backend}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_strain_"))
+    try:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.FileStore(str(tmp / "store1"), 1),
+                                rank=0, world_size=1)
+        try:
+            print(f"  (14g) {cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+                  f"{SHARD_TRAIN_STEPS} steps; unsharded and one rank "
+                  f"(backend {dist.get_backend()}, mesh (1, 1)), "
+                  f"deterministic algorithms")
+            plain = _train_on_mesh(cfg, dev, seed, None, batches,
+                                   gather="state")
+            _print_mesh("(14g) unsharded", plain, tokens, card)
+            one = _train_on_mesh(cfg, dev, seed, {"data": 1, "model": 1},
+                                 batches, gather="state")
+            a, b = one.pop("state"), plain.pop("state")
+            same = (one["losses"] == plain["losses"]
+                    and one["grad_norms"] == plain["grad_norms"]
+                    and all(torch.equal(t, b.params[n])
+                            for n, t in a.params.items())
+                    and all(torch.equal(t, getattr(b.opt, part)[n])
+                            for part in ("mu", "nu")
+                            for n, t in getattr(a.opt, part).items()))
+            if not same:
+                raise AssertionError("(14g) (1, 1) is not bit for bit the "
+                                     "unsharded step")
+            # What a (1, 1) save writes, and (1, 1)'s sampled positions.
+            want_arrays = checkpoint._arrays(a)
+            one["samples"] = _samples(a, seed)
+            del a, b
+            _print_mesh("(14g) (1, 1)", one, tokens, card,
+                        "; bit for bit the unsharded step (losses, "
+                        "grad_norm, params, moments)")
+            out["unsharded"], out["1x1"] = plain, one
+            torch.cuda.empty_cache()
+            moe_one = _train_on_mesh(mcfg, dev, seed, {"data": 1, "model": 1},
+                                     mbatches, rc_fields={"moe_impl": "sort"},
+                                     log=RouterLog(1.25, logits=True),
+                                     gather="samples")
+            _print_mesh(f"(14h) {mcfg.name} at {mcfg.num_layers} layers, "
+                        f"{MOE_TRAIN_SHAPE[0]} x {MOE_TRAIN_SHAPE[1]} tokens, "
+                        f"'sort', (1, 1)", moe_one, mbatches[0]["tokens"]
+                        .numel(), card)
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        where = ("one card, backend gloo (CUDA tensors through host memory; "
+                 "NCCL refuses two ranks on one device); the walls are "
+                 "processes sharing one card, not a multi-card figure"
+                 if backend == "gloo" else f"one card each, backend {backend}")
+        print(f"  (14g) {ranks} ranks on {where}")
+        torch.save((batches, mbatches), tmp / "batches.pt")
+        t0 = time.perf_counter()
+        mp.spawn(_train_rank, args=(ranks, str(tmp / "store2"), str(tmp),
+                                    seed, cfg, mcfg, dev.type, backend),
+                 nprocs=ranks, join=True)
+        out["spawn_s"] = time.perf_counter() - t0
+        recs = [torch.load(tmp / f"train_{r}.pt") for r in range(ranks)]
+        lr_sum = sum(one["lrs"])
+        (d0, m0), (d1, m1) = _train_meshes(ranks)
+        for data, model in ((d0, m0), (d1, m1)):
+            tag = f"{data}x{model}"
+            for r in recs[1:]:
+                if r[tag]["losses"] != recs[0][tag]["losses"]:
+                    raise AssertionError(f"(14g) {tag}: the ranks' losses "
+                                         "differ")
+            rec = recs[0][tag]
+            rec["state_bytes_by_rank"] = [r[tag]["state_bytes"] for r in recs]
+            rec["peak_bytes_by_rank"] = [r[tag]["peak_bytes"] for r in recs]
+            rec.update(_against(rec, one, f"(14g) {tag}"))
+            if (data, model) == (d0, m0):
+                with np.load(tmp / f"ckpt_{tag}" / f"step_"
+                             f"{SHARD_TRAIN_STEPS:08d}" / "arrays.npz") as f:
+                    saved = {k: f[k] for k in f.files}
+                rec["state_err"] = _compare_arrays(
+                    saved, want_arrays, lr_sum, f"(14g) {tag} checkpoint")
+            else:
+                rec["state_err"] = _compare_leaves(
+                    ((key.split(":")[0], key, rec["samples"][key], w)
+                     for key, w in one["samples"].items()), lr_sum,
+                    f"(14g) {tag} at {STATE_SAMPLES} positions a leaf")
+                del rec["samples"]
+            out[tag] = rec
+            _print_mesh(f"(14g) ({data}, {model})", rec, tokens, card,
+                        f"; against (1, 1): loss {rec['loss_err']:.3g}, "
+                        f"grad_norm {rec['grad_norm_err']:.3g}, "
+                        + ("checkpoint from the shards (params, mu, nu) "
+                           if model == 1 else f"params, mu at {STATE_SAMPLES}"
+                           " positions a leaf ") + f"{rec['state_err']}; "
+                        f"state by rank {rec['state_bytes_by_rank']}")
+        del one["samples"], want_arrays
+        # The (N, 1) checkpoint into the unsharded model.
+        model = build_model(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                seed + 1))
+        state = train_step.init_train_state(model,
+                                            optimizer.OptConfig(**TRAIN_OC))
+        tag = f"{d0}x{m0}"
+        state, manifest = checkpoint.restore_checkpoint(tmp / f"ckpt_{tag}",
+                                                        state)
+        back = checkpoint._arrays(state)
+        if sorted(back) != sorted(saved) or any(
+                back[k].tobytes() != saved[k].tobytes() for k in saved):
+            raise AssertionError(f"(14g) the {tag} checkpoint did not "
+                                 "restore into the unsharded model")
+        print(f"  (14g) the ({d0}, {m0}) checkpoint restores into the "
+              f"unsharded model, every leaf byte for byte")
+        del model, state, back, saved
+        torch.cuda.empty_cache()
+
+        moe = recs[0]["moe"]
+        for r in recs[1:]:
+            if r["moe"]["losses"] != moe["losses"]:
+                raise AssertionError("(14h) the ranks' losses differ")
+        moe["state_bytes_by_rank"] = [r["moe"]["state_bytes"] for r in recs]
+        moe["peak_bytes_by_rank"] = [r["moe"]["peak_bytes"] for r in recs]
+        _moe_against(moe, moe_one, mcfg)
+        out["moe_1x1"], out[f"moe_1x{ranks}"] = moe_one, moe
+        _print_mesh(f"(14h) (1, {ranks})", moe, mbatches[0]["tokens"].numel(),
+                    card, f"; against (1, 1): loss {moe['loss_err']:.3g}, "
+                    f"grad_norm {moe['grad_norm_err']:.3g}, params / mu at "
+                    f"{STATE_SAMPLES} positions a leaf {moe['samples_err']}, "
+                    f"share past 1e-4 {moe['share_past']}; first step's "
+                    f"routing {moe['routing']}; state by rank "
+                    f"{moe['state_bytes_by_rank']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def train_families_phase(dev, card, seed):
+    """Phase 14 (module comment above). Returns the record."""
+    t_phase = time.perf_counter()
+    out = {"families": {}, "walls_s": {}}
+    for arch in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        out["families"][arch] = family_training(arch, dev, card, seed)
+        out["walls_s"][arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["smoke_against_cpu"] = family_smoke_against_cpu(dev, card, seed)
+    out["walls_s"]["smoke_against_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sharded"] = shard_training(dev, card, seed)
+    out["walls_s"]["sharded"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (14) walls: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in out["walls_s"].items()))
+    print(f"  (14) {out['phase_s']:.1f} s in all  [{card}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4056,6 +4821,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     record: dict = {}
+    t_main = time.perf_counter()
+
+    def stamp(phase):
+        at = time.perf_counter() - t_main
+        record.setdefault("stamps_s", {})[phase] = at
+        print(f"[{at:.1f} s] phase {phase}", flush=True)
 
     # 1. Provenance.
     card = card_line()
@@ -4089,6 +4860,7 @@ def main() -> int:
                   f"{r['spill_stores']} / {r['spill_loads']} B  "
                   f"{r['function'][:80]}")
 
+    stamp(3)
     # 3. Kernel vs plain, on the card.
     rng = np.random.default_rng(args.seed)
     bench = KernelBench(nm, ref, dev, baseline)
@@ -4134,6 +4906,7 @@ def main() -> int:
         print_b4_row(row)
     record["b4_large_o"] = abench.large_output(rng)
 
+    stamp(4)
     # 4. Clustering main path.
     t0 = time.perf_counter()
     # Its own generator, so phase 3's draws do not change the workload.
@@ -4209,6 +4982,7 @@ def main() -> int:
     del graphs, per_graph, path, stats
     torch.cuda.empty_cache()
 
+    stamp(5)
     # 5. The clustering serving layer.
     serve_cl = serving_phase(dev, card, args.seed, bench, ag_base)
     record["cluster_serving"] = serve_cl
@@ -4245,6 +5019,7 @@ def main() -> int:
             "program_ms": a["program_ms"],
             **{k: a[k] for k in ("ab_ms", "baseline_ms") if k in a}})
 
+    stamp(6)
     # 6. LM serving path: smollm-135m at full width, f32, random weights.
     cfg = get_config("smollm-135m")
     t0 = time.perf_counter()
@@ -4307,6 +5082,7 @@ def main() -> int:
                 "call_ms": row["call_ms"], "bounds": row["bounds"],
                 "variant": f"fa_forward_kernel<{dtype}, {row['shape'][5]}>,"
                            " off the path"})
+    stamp(7)
     # 7. The paper's other algorithms.
     t0 = time.perf_counter()
     paper = paper_phase(dev, card, args.seed, b3bench)
@@ -4323,9 +5099,11 @@ def main() -> int:
         "library_ms": None, "shape": w["shape"], "call_ms": w["call_ms"],
         "variant": f"window mode, {w['variant']} route (equal on "
                    f"{'+'.join(w['equal_on'])})", "rounds": w["rounds"]})
+    stamp(8)
     # 8. The near-duplicate dedup path.
     dedup_rec = dedup_phase(dev, card, args.seed)
     record["dedup"] = dedup_rec
+    stamp(9)
     # 9. The launch-plan autotuner.
     tune = autotune_phase(dev, card, args.seed)
     record["autotune"] = tune
@@ -4345,6 +5123,7 @@ def main() -> int:
             row["tuned"] = {k: at_shape[k] for k in (
                 "batch", "R", "W", "default", "default_ms", "winner",
                 "winner_ms", "model_ms")}
+    stamp(10)
     # 10. The training path; B3's row gains its launches in the training
     # launcher's dedup stage.
     train_rec = training_phase(dev, card, args.seed, b3bench)
@@ -4357,6 +5136,7 @@ def main() -> int:
                 {k: r[k] for k in ("shape", "variant", "equal_on", "ms",
                                    "plain_ms", "bound_ms", "bound_by")}
                 for r in train_rec["b3_dedup_rows"]]
+    stamp(11)
     # 11. The other dense configs and MoE at full width; each B4 row with
     # its launches on that config's path.
     lm = lm_configs_phase(dev, card, args.seed, abench, rng,
@@ -4364,12 +5144,14 @@ def main() -> int:
     served = lm["configs"][SHARD_ARCH].pop("served_logits")
     record["lm_configs"] = lm
     kernels.extend(lm["kernels"])
+    stamp(12)
     # 12. The other model families; each new B4 row with its instance's
     # launches on that family's path.
     fam = families_phase(dev, card, args.seed, abench, rng,
                          record["ptxas"].get("flash_attention", []))
     record["families"] = fam
     kernels.extend(fam["kernels"])
+    stamp(13)
     # 13. Sharded serving of olmoe-1b-7b on (data, model) meshes; B4's row
     # at the local-head instance with its launches on a rank's path.
     shard, shard_kernel = shard_phase(
@@ -4377,6 +5159,16 @@ def main() -> int:
         record["ptxas"].get("flash_attention", []), served)
     record["sharding"] = shard
     kernels.append(shard_kernel)
+    stamp(14)
+    # 14. Training every family, and the sharded train step; B3's row
+    # gains its launches in each family's dedup stage.
+    fam_train = train_families_phase(dev, card, args.seed)
+    record["train_families"] = fam_train
+    for row in kernels:
+        if row["name"] == "mis_pivot":
+            row["launches_family_train_dedup"] = {
+                arch: rec["b3_launches_dedup"]
+                for arch, rec in fam_train["families"].items()}
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -4384,7 +5176,24 @@ def main() -> int:
         args.out.write_text(json.dumps(record, indent=1, default=lambda o:
                                        o.item()))
 
-    # 14. Summary.
+    stamp(15)
+    # 15. Summary.
+    sharded = fam_train["sharded"]
+    print(json.dumps({"train_families": {
+        "phase_s": fam_train["phase_s"],
+        **{arch: {k: rec[k] for k in (
+            "batch", "seq", "median_step_ms", "tokens_per_s", "peak_bytes",
+            "state_bytes", "losses", "b3_launches_dedup", "b4_launches",
+            "restart_bitwise")}
+           for arch, rec in fam_train["families"].items()},
+        "smoke_against_cpu": fam_train["smoke_against_cpu"],
+        "sharded": {tag: {k: rec[k] for k in (
+            "median_step_ms", "tokens_per_s", "losses", "grad_norms",
+            "state_bytes", "peak_bytes", "collectives", "state_bytes_by_rank",
+            "peak_bytes_by_rank", "loss_err", "grad_norm_err",
+            "checkpoint_err", "samples_err", "routing") if k in rec}
+            for tag, rec in sharded.items() if isinstance(rec, dict)},
+        "spawn_s": sharded["spawn_s"]}}))
     print(json.dumps({"sharding": {
         "phase_s": shard["phase_s"], "spawn_s": shard["spawn_s"],
         "dropped_per_prefill": shard["dropped_per_prefill"],

@@ -7,14 +7,18 @@ dedup stage.
 
 The port of ``repro/launch/train.py``, with its flags plus ``--device``
 (CUDA by default; the call raises without a card unless the caller passes
-``cpu``). The run configuration is the reference's: naive attention for
-the smoke configs, chunked otherwise (kernel B4 has no backward, in the
-reference too), ``loss_chunk = min(256, seq_len)``, f32 weights and AdamW
-state, lr 1e-3 with 5 warmup steps. The reference also sets the RWKV and
-SSD impls, which only the ssm and hybrid families read; those families,
-and encdec and vlm, are refused here (training them on the card, and
-checkpoints of their trees across packages, wait for ROADMAP A18c-train).
-Weights are drawn from a ``torch.Generator`` seeded with ``seed``; a run
+``cpu``). It trains every family. The run configuration is the reference's
+(:func:`run_config`): naive attention for the smoke configs, chunked
+otherwise (kernel B4 has no backward, in the reference too),
+``loss_chunk = min(256, seq_len)``, ``ssd_chunk=16`` for the hybrid
+family, ``rwkv_impl`` "scan" at smoke size and "chunked" at full size for
+the ssm family (each field passed only to the family that reads it), f32
+weights and AdamW state, lr 1e-3 with 5 warmup steps. The encdec and vlm
+batches carry the reference's zero stub embeddings (``audio_embeds``
+(B, encoder_seq, d), ``image_embeds`` (B, num_image_tokens, d)).
+Weights are drawn from a ``torch.Generator`` on the training device seeded
+with ``seed`` (a full-width family's billions of weights drawn on the host
+would take longer than its steps); a run
 resumed from a checkpoint (``--resume``) replaces them with the
 checkpoint's.
 ``--fail-at K`` raises :class:`SimulatedFailure` after step K's checkpoint
@@ -57,8 +61,6 @@ from ..train.train_step import StepConfig, init_train_state, make_train_step
 from ..util import DeviceLike, resolve_device
 
 CUBLAS_DETERMINISTIC = ":4096:8"
-# The families this launcher trains; the others wait for ROADMAP A18c-train.
-TRAINED_FAMILIES = ("dense", "moe")
 
 
 def set_cublas_workspace() -> None:
@@ -66,6 +68,27 @@ def set_cublas_workspace() -> None:
     unless the caller set it; cuBLAS reads it only before CUDA starts, so
     call this first."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+
+
+def run_config(cfg, smoke: bool, seq_len: int) -> RunConfig:
+    """The reference launcher's ``RunConfig``, each field passed only to the
+    family that reads it (``RunConfig.check``)."""
+    family = {"ssm": {"rwkv_impl": "scan" if smoke else "chunked"},
+              "hybrid": {"ssd_chunk": 16}}.get(cfg.family, {})
+    return RunConfig(attn_impl="naive" if smoke else "chunked",
+                     loss_chunk=min(256, seq_len), **family)
+
+
+def stub_batch(cfg, global_batch: int, device) -> dict:
+    """The reference launcher's zero stub embeddings for the encdec and
+    vlm families, by batch key (empty for the others)."""
+    shape = {"encdec": ("audio_embeds", cfg.encoder_seq),
+             "vlm": ("image_embeds", cfg.num_image_tokens)}.get(cfg.family)
+    if shape is None:
+        return {}
+    key, n = shape
+    return {key: torch.zeros((global_batch, n, cfg.d_model),
+                             dtype=torch.float32, device=device)}
 
 
 def dedup_stage(cfg, seed: int = 0, device: DeviceLike = None):
@@ -130,14 +153,10 @@ def run(arch: str, smoke: bool, steps: int, ckpt_dir: Optional[str],
     each ending in the loss's read back to the host)."""
     dev = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({arch}) is not ported yet: "
-            "ROADMAP A18c-train")
-    rc = RunConfig(attn_impl="naive" if smoke else "chunked",
-                   loss_chunk=min(256, seq_len))
+    rc = run_config(cfg, smoke, seq_len)
     model = build_model(cfg, device=dev, dtype=torch.float32,
-                        generator=torch.Generator().manual_seed(seed), rc=rc)
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        rc=rc)
     oc = OptConfig(lr=1e-3, warmup_steps=5, total_steps=max(steps, 10))
     sc = StepConfig(accum_steps=1)
 
@@ -153,10 +172,12 @@ def run(arch: str, smoke: bool, steps: int, ckpt_dir: Optional[str],
     step_fn = make_train_step(model, oc, sc)
     watchdog = StepWatchdog()
     losses = []
+    stubs = stub_batch(cfg, global_batch, dev)
     with deterministic(dev):
         for step in range(start_step, steps):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in pipe.batch_at(step).items()}
+            batch.update(stubs)
             watchdog.start()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])

@@ -32,8 +32,13 @@ write (``update_cache``, ``rope_on_q`` and ``mask_to_pos`` off).
 
 On a mesh (``layout``, ``models/parallel.py``) the weights are the
 rank's blocks: ``wq``, ``wk``, ``wv`` column-parallel on the rank's heads
-(their d_model rows gathered over data first, ZeRO-3), ``wo``
-row-parallel, followed by one all-reduce over the heads' axes. Where the
+(their d_model rows gathered over data first, ZeRO-3, whose backward
+reduce-scatters their gradients), ``wo`` row-parallel, followed by one
+all-reduce over the heads' axes. In the backward the input's gradient,
+and that of every replicated weight only the rank's heads use (the
+qk-norm scales; ``wk``, ``wv`` where the kv heads are whole), is summed
+over the heads' axes (``parallel.copy_to``), so each arrives whole and
+equal on every rank. Where the
 q heads are sharded and the kv heads are not, the rank's q heads read the
 kv group of their *global* index (:func:`_kv_for_heads`). Where neither
 divides the model axis, attention is replicated. A decode cache whose
@@ -57,6 +62,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.ref import NEG_INF
 from .common import (apply_rope, dense_init, head_rms_norm, linear,
                      linear_rows, weight)
+from .parallel import copy_to
 
 
 class Attention(nn.Module):
@@ -107,17 +113,30 @@ def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``rope`` and the model is not attention-free. On a mesh, H and KH are
     the rank's heads."""
     b, s, _ = x.shape
-    src = x if kv_x is None else kv_x
-    hd = cfg.head_dim
     wq, wk, wv = p.wq, p.wk, p.wv
+    q_norm, k_norm = getattr(p, "q_norm", None), getattr(p, "k_norm", None)
     if layout is not None:
         wq, wk, wv = (layout.whole(w, 0) for w in (wq, wk, wv))
+        heads = layout.axes("heads")
+        if heads:
+            # The rank's heads take part of each replicated input's uses:
+            # x, the qk-norm scales and, where the kv heads are whole, wk
+            # and wv. Their gradients are summed over the heads' axes.
+            x = copy_to(x, layout, heads)
+            if not layout.axes("kv"):
+                wk, wv = copy_to(wk, layout, heads), copy_to(wv, layout,
+                                                             heads)
+            if q_norm is not None:
+                q_norm = copy_to(q_norm, layout, heads)
+                k_norm = copy_to(k_norm, layout, heads)
+    src = x if kv_x is None else kv_x
+    hd = cfg.head_dim
     q = linear(x, wq).reshape(b, s, -1, hd)
     k = linear(src, wk).reshape(b, src.shape[1], -1, hd)
     v = linear(src, wv).reshape(b, src.shape[1], -1, hd)
-    if cfg.qk_norm and hasattr(p, "q_norm"):
-        q = head_rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = head_rms_norm(k, p.k_norm, cfg.norm_eps)
+    if cfg.qk_norm and q_norm is not None:
+        q = head_rms_norm(q, q_norm, cfg.norm_eps)
+        k = head_rms_norm(k, k_norm, cfg.norm_eps)
     if rope and not cfg.attention_free:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

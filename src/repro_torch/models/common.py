@@ -23,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .parallel import reduce_from
+
 # The layout whose blocks weight() keeps while a sharded model is drawn.
 _DRAWING = None
 
@@ -167,11 +169,12 @@ def linear_rows(x: torch.Tensor, w: torch.Tensor, layout,
                 axes: Sequence[str]) -> torch.Tensor:
     """A row-parallel :func:`linear`: ``w`` holds this rank's block of
     rows (and ``x`` the matching columns); the partial products are
-    all-reduced over ``axes`` in the reduce dtype, then cast to
-    ``x.dtype``. Without a layout it is :func:`linear`."""
+    all-reduced over ``axes`` in the reduce dtype (``parallel.reduce_from``:
+    the gradient passes back unchanged), then cast to ``x.dtype``. Without
+    a layout it is :func:`linear`."""
     part = torch.matmul(x.float(), w.float()).to(reduce_dtype(x.dtype))
     if layout is not None:
-        part = layout.all_reduce(part, axes)
+        part = reduce_from(part, layout, axes)
     return part.to(x.dtype)
 
 

@@ -34,6 +34,14 @@ the data axes) exactly as one device would, with :func:`_capacity` of the
 whole batch, runs its own experts (``experts`` → model) or its slice of
 every expert's hidden (``expert_ff`` → model), and the partial outputs of
 its own tokens are summed with one all-reduce over the model axis.
+
+Under grad on a mesh each rank's gates and expert inputs feed only its own
+experts' (or hidden slice's) terms, so the tokens' gradient and the f32
+router's are summed over the model axis (``parallel.copy_to``), and the
+batch gathered over the data axes takes its gradient back
+reduce-scattered (``parallel.gather_from``); the dense SwiGLU's input is
+summed likewise. Every replicated weight's gradient arrives whole on each
+rank.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .common import dense_init, linear, linear_rows, reduce_dtype, weight
-from .parallel import copy_to, reduce_from
+from .parallel import copy_to, gather_from, reduce_from
 
 MOE_IMPLS = ("sort", "einsum", "ep_local")
 
@@ -75,8 +83,10 @@ def mlp(p: MLP, x: torch.Tensor, layout=None) -> torch.Tensor:
         return linear(h, p.wo)
     wi, wg, wo = layout.whole(p.wi, 0), layout.whole(p.wg, 0), \
         layout.whole(p.wo, 1)
-    h = torch.nn.functional.silu(linear(x, wg)) * linear(x, wi)
     ff = layout.axes("ff")
+    if ff:
+        x = copy_to(x, layout, ff)
+    h = torch.nn.functional.silu(linear(x, wg)) * linear(x, wi)
     return linear_rows(h, wo, layout, ff) if ff else linear(h, wo)
 
 
@@ -243,8 +253,9 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
     if layout is not None:
         ep = layout.axes("experts")
         if impl == "ep_local" and mesh is not None and ep:
-            w = types.SimpleNamespace(router=layout.whole(p.router, 0),
-                                      wi=p.wi, wg=p.wg, wo=p.wo)
+            w = types.SimpleNamespace(
+                router=copy_to(layout.whole(p.router, 0), layout, ep),
+                wi=p.wi, wg=p.wg, wo=p.wo)
             y = moe_ep_local(w, xt, cfg, capacity_factor, layout)
             return y.reshape(b, s, d).to(x.dtype)
         return _moe_on_mesh(p, xt, cfg, impl, capacity_factor, token_chunk,
@@ -280,10 +291,15 @@ def _moe_on_mesh(p: MoE, xt: torch.Tensor, cfg: ModelConfig, impl: str,
     """``sort`` or ``einsum`` on a mesh: the rank's tokens xt (T_loc, d)
     → their outputs, the unsharded function's (module docstring)."""
     batch = layout.axes("batch")
-    xs = layout.all_gather(xt, batch, 0) if batch else xt
     ep, tp = layout.axes("experts"), layout.axes("expert_ff")
+    split = ep or tp
+    router = layout.whole(p.router, 0)
+    if split:
+        xt = copy_to(xt, layout, split)
+        router = copy_to(router, layout, split)
+    xs = gather_from(xt, layout, batch, 0) if batch else xt
     w = types.SimpleNamespace(
-        router=layout.whole(p.router, 0),
+        router=router,
         wi=layout.whole(p.wi, 1, "expert_embed"),
         wg=layout.whole(p.wg, 1, "expert_embed"),
         wo=layout.whole(p.wo, 2, "expert_embed"), partial=bool(tp))
@@ -292,8 +308,7 @@ def _moe_on_mesh(p: MoE, xt: torch.Tensor, cfg: ModelConfig, impl: str,
     y = _chunked(fn, w, xs, cfg, capacity_factor, token_chunk, first)
     if batch:
         y = y[layout.rows(xs.shape[0])]
-    split = ep or tp
-    return layout.all_reduce(y, split) if split else y
+    return reduce_from(y, layout, split) if split else y
 
 
 def ep_local_capacity(t_loc: int, cfg: ModelConfig, factor: float) -> int:

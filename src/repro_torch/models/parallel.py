@@ -6,10 +6,14 @@ holds *local blocks* (``sharding.local_block``) and calls the collectives
 itself, in the Megatron/ZeRO manner. Every one goes through
 :class:`Layout`, which holds one process group per set of mesh axes and
 counts calls and bytes by kind in :data:`counts` (as ``core/dist.py``
-counts its rounds): ``all_reduce`` (sum or max) and ``all_gather``. The
-bytes are those the rank contributes (its input tensor). A group of one
-rank is a pass-through that is still counted, so a ``(1, 1)`` mesh runs
-the unsharded numbers with every collective's count visible.
+counts its rounds): ``all_reduce`` (sum or max), ``all_gather`` and
+``reduce_scatter``. The bytes are those the rank contributes (its input
+tensor). A group of one rank is a pass-through that is still counted, so a
+``(1, 1)`` mesh runs the unsharded numbers with every collective's count
+visible. Gloo has no reduce-scatter: there it is an all-reduce of the
+whole tensor, of which the rank keeps its block, still counted as
+``reduce_scatter`` with the whole tensor's bytes (what the rank sent);
+NCCL runs ``reduce_scatter_tensor``.
 
 A gloo group carries CUDA tensors through host memory by design: the
 tensor is copied to the host, reduced or gathered there, and copied back.
@@ -21,6 +25,12 @@ to another path when it fails.
 model-parallel region: the first is the identity forward and an all-reduce
 backward (a replicated input whose uses are split over ranks), the second
 an all-reduce forward and the identity backward (partial outputs summed).
+:func:`gather_from` is the ZeRO half: an all-gather forward and a
+reduce-scatter backward, so the gradient of a weight gathered over the data
+axes arrives summed over them and cut to the rank's block.
+:meth:`Layout.whole` gathers through it. Blocks under
+``torch.utils.checkpoint`` run their forward collectives again in the
+backward, in the same order on every rank; each is counted as issued.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ import torch.distributed as dist
 from .sharding import (ShardingPlan, Spec, axes_index, axes_span, entry_axes,
                        local_block, mesh_axis_sizes, mesh_coords)
 
-KINDS = ("all_reduce", "all_gather")
+KINDS = ("all_reduce", "all_gather", "reduce_scatter")
 
 # Collectives issued and the bytes they carried since reset_counts().
 counts: Dict[str, Dict[str, int]] = {k: {"calls": 0, "bytes": 0}
@@ -132,7 +142,7 @@ class Layout:
         is dropped after it). ``w`` itself where the plan gives the axis
         no mesh axis."""
         axes = self.axes(logical)
-        return self.all_gather(w, axes, dim) if axes else w
+        return gather_from(w, self, axes, dim) if axes else w
 
     def _group(self, axes: Sequence[str]):
         key = tuple(a for a in self.mesh.mesh_dim_names if a in axes)
@@ -170,6 +180,31 @@ class Layout:
         dist.all_gather(parts, staged, group=g)
         return torch.cat(parts, dim=dim).to(x.device)
 
+    def reduce_scatter(self, x: torch.Tensor, axes: Sequence[str],
+                       dim: int) -> torch.Tensor:
+        """The sum of ``x`` over ``axes``, cut to this rank's block along
+        ``dim`` (the block :meth:`all_gather` takes back): NCCL's
+        ``reduce_scatter_tensor``; on gloo, which has none, an all-reduce
+        of the whole ``x`` and the rank's block of it."""
+        _count("reduce_scatter", x)
+        g = self._group(axes)
+        if g is None:
+            return x
+        n, i = self.span(axes), self.index(axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                             f"over {tuple(axes)} ({n} ranks)")
+        b = x.shape[dim] // n
+        if dist.get_backend(g) == "gloo":
+            staged = _staged(x, g)
+            dist.all_reduce(staged, group=g)
+            return staged.narrow(dim, i * b, b).contiguous().to(x.device)
+        whole = x.detach().movedim(dim, 0).contiguous()
+        out = torch.empty((b,) + tuple(whole.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, whole, group=g)
+        return out.movedim(0, dim).contiguous()
+
     def gather_spec(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
         """The whole leaf from this rank's block ``t`` of a leaf with
         ``spec``: an all-gather along every sharded dim."""
@@ -202,11 +237,32 @@ class _CopyTo(torch.autograd.Function):
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, layout, axes):
-        return layout.all_reduce(x, axes)
+        y = layout.all_reduce(x, axes)
+        return y.view_as(y) if y is x else y
 
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axes, dim):
+        ctx.layout, ctx.axes, ctx.dim = layout, axes, dim
+        y = layout.all_gather(x, axes, dim)
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layout.reduce_scatter(g, ctx.axes, ctx.dim), None, None, \
+            None
+
+
+def gather_from(x: torch.Tensor, layout: Layout, axes: Sequence[str],
+                dim: int) -> torch.Tensor:
+    """All-gathered over ``axes`` along ``dim`` forward; the gradient
+    reduce-scattered back to the rank's block backward."""
+    return _GatherFrom.apply(x, layout, tuple(axes), dim)
 
 
 def copy_to(x: torch.Tensor, layout: Layout,
@@ -222,4 +278,4 @@ def reduce_from(x: torch.Tensor, layout: Layout,
 
 
 __all__ = ["Layout", "counts", "reset_counts", "snapshot", "copy_to",
-           "reduce_from", "KINDS"]
+           "reduce_from", "gather_from", "KINDS"]

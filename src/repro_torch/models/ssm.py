@@ -8,8 +8,10 @@ SSD):
 :func:`ssd_chunked` splits T into chunks of Q: within a chunk the
 quadratic form ``(C Bᵀ ⊙ L) (dt·x)`` with the decay mask
 ``L[i,j] = exp(cum[i] − cum[j])`` for i ≥ j and 0 above the diagonal
-(selected with ``where``: ``exp(diff)`` is +inf there, and a multiplied
-mask would give NaN); across chunks a loop carries the (H, N, P) state.
+(the exponent set to −inf there with ``where`` before ``exp``: ``exp(diff)``
+may be +inf above the diagonal, where a multiplied mask would give NaN,
+and a mask applied after ``exp`` a NaN gradient); across chunks a loop
+carries the (H, N, P) state.
 As in the reference, the causal depthwise conv is applied to the x stream
 only and B/C are shared across heads (one group, zamba2-2.7B's
 configuration). The reference computes all of it with XLA ops outside any
@@ -110,7 +112,10 @@ def ssd_chunked(x, a_log, bv, cv, chunk: int = 64, init_state=None):
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
     iq = torch.arange(chunk, device=x.device)
     causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
-    l_mask = torch.where(causal, torch.exp(diff), torch.zeros_like(diff))
+    # Masked before the exponent: where exp(diff) overflowed above the
+    # diagonal, a mask after it would pass a 0·inf = NaN gradient back.
+    l_mask = torch.exp(torch.where(causal, diff,
+                                   torch.full_like(diff, -float("inf"))))
     scores = cb[..., None] * l_mask                   # (B,nc,Q,Q,H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xq)
 

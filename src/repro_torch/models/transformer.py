@@ -30,7 +30,10 @@ head column-parallel (logits all-gathered over the vocabulary's and the
 batch's axes, so every rank holds the same logits), the attention and
 feed-forward tensor-parallel, and each weight's d_model rows are gathered
 over data just before use (ZeRO-3). ``constrain`` keeps the reference's
-call sites. The other four families on a mesh wait for ROADMAP 18d-2.
+call sites. Its loss is vocabulary-parallel (:func:`loss_fn`), and every
+collective on the way carries its gradient (``models/parallel.py``), so
+``train.train_step.make_train_step`` trains it. The other four families on
+a mesh wait for ROADMAP 18d-2.
 The loss avoids materialising (B, S, V) logits by taking the vocabulary
 projection and the softmax cross-entropy a sequence chunk at a time, each
 chunk checkpointed.
@@ -52,6 +55,7 @@ from . import ssm as ssm_mod
 from .attention import Attention, attention
 from .common import constrain, dense_init, param_axes, rms_norm, weight
 from .mlp import MLP, MoE, mlp, moe
+from .parallel import copy_to, reduce_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +283,7 @@ def embed_tokens(params: "Transformer", tokens: torch.Tensor
     inside = (local >= 0) & (local < n)
     rows = torch.where(inside[..., None], emb[local.clamp(0, n - 1)],
                        torch.zeros((), dtype=emb.dtype, device=emb.device))
-    return layout.all_reduce(rows, vocab) if vocab else rows
+    return reduce_from(rows, layout, vocab) if vocab else rows
 
 
 def _dense_block(p: Block, cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
@@ -411,25 +415,64 @@ def lm_head(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
     return params.lm_head
 
 
+class _VocabLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last dim of logits whose columns may be split
+    over the mesh ``axes`` (none without a mesh): the local max all-reduced
+    (max), the local sum of exponentials all-reduced (sum). Forward and
+    backward are the operations of ``torch.logsumexp`` (max, ``exp(x −
+    max)``, sum, log, + max; the gradient ``g · exp(x − lse)``), so over
+    one rank the result and the gradient are its, bit for bit. The
+    backward needs no collective: each rank's columns take their part."""
+
+    @staticmethod
+    def forward(ctx, x, layout, axes):
+        m = x.amax(dim=-1, keepdim=True)
+        if axes:
+            m = layout.all_reduce(m, axes, "max")
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        total = (x - m).exp().sum(dim=-1)
+        if axes:
+            total = layout.all_reduce(total, axes)
+        lse = total.log() + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * (x - lse[..., None]).exp(), None, None
+
+
 def _ce_chunk(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
-              vocab_size: int):
+              vocab_size: int, layout=None, axes=()):
     """(sum of -log p(label), count of labels) over one chunk; labels -1
-    are ignored, padded vocabulary columns masked to -1e30."""
-    logits = torch.matmul(h.float(), head.float())          # (B, c, Vpad)
-    vpad = head.shape[1]
-    if vpad > vocab_size:
-        col = torch.arange(vpad, device=logits.device)
+    are ignored, padded vocabulary columns masked to -1e30. On a mesh
+    ``head`` (d, V_loc) is the rank's block of a vocabulary split over
+    ``axes``: the log-sum-exp runs over every column
+    (:class:`_VocabLogSumExp`) and the label's logit comes from the rank
+    that holds it, zeros elsewhere, summed over ``axes``."""
+    logits = torch.matmul(h.float(), head.float())          # (B, c, V_loc)
+    n = head.shape[1]
+    first = layout.index(axes) * n if axes else 0
+    if (layout.span(axes) if axes else 1) * n > vocab_size:
+        col = first + torch.arange(n, device=logits.device)
         logits = torch.where(col < vocab_size, logits, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, lab.clamp(min=0)[..., None],
+    lse = _VocabLogSumExp.apply(logits, layout, axes)
+    local = lab.clamp(min=0) - first
+    inside = (local >= 0) & (local < n)
+    ll = torch.take_along_dim(logits, local.clamp(0, n - 1)[..., None],
                               dim=-1)[..., 0]
+    ll = torch.where(inside, ll, torch.zeros((), dtype=ll.dtype,
+                                             device=ll.device))
+    if axes:
+        ll = reduce_from(ll, layout, axes)
     valid = (lab >= 0).float()
     return ((lse - ll) * valid).sum(), valid.sum()
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, vocab_size: int,
-                          chunk: int = 512) -> torch.Tensor:
+                          chunk: int = 512, layout=None) -> torch.Tensor:
     """Mean next-token CE without materialising (B, S, V) logits.
 
     hidden (B,S,D); head (D,Vpad); labels (B,S) with -1 = ignore. S is
@@ -437,7 +480,19 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     checkpointed, so only one chunk's logits live at a time, in the
     backward too; the sums accumulate chunk by chunk in f32, as the
     reference's scan does.
+
+    On a mesh (``layout``) ``hidden`` and ``labels`` are the rank's rows
+    and ``head`` its columns of the vocabulary: the loss is
+    vocabulary-parallel (the hidden states' gradient summed over the
+    vocabulary's axes) and the mean over every valid label of the global
+    batch, the sum and the count all-reduced over the batch's axes. The
+    sum's gradient is the rank's own (``reduce_from``), so the
+    parameters' gradients are the rank's shares of the global mean's,
+    summed over the data axes by the train step.
     """
+    vocab = layout.axes("vocab") if layout is not None else ()
+    if vocab:
+        hidden = copy_to(hidden, layout, vocab)
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -448,9 +503,13 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s + pad, chunk):
         ls, c = checkpoint(_ce_chunk, hidden[:, i:i + chunk], head,
-                           labels[:, i:i + chunk], vocab_size,
+                           labels[:, i:i + chunk], vocab_size, layout, vocab,
                            use_reentrant=False)
         loss_sum, cnt = loss_sum + ls, cnt + c
+    batch = layout.axes("batch") if layout is not None else ()
+    if batch:
+        loss_sum = reduce_from(loss_sum, layout, batch)
+        cnt = layout.all_reduce(cnt, batch)
     return loss_sum / torch.clamp(cnt, min=1.0)
 
 
@@ -458,16 +517,23 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S);
     ``audio_embeds`` or ``image_embeds`` where the family reads them).
-    Training on a mesh waits for ROADMAP 18d-2."""
-    if params.layout is not None:
-        raise NotImplementedError("the loss of a sharded model (the sharded "
-                                  "train step) waits for ROADMAP 18d-2")
+
+    On a mesh (dense and moe) every rank is given the whole batch and
+    runs its rows of it (``layout.rows``); the result is the global
+    batch's mean on every rank (:func:`chunked_cross_entropy`)."""
+    layout = params.layout
     hidden = forward(params, cfg, rc, batch["tokens"],
                      audio_embeds=batch.get("audio_embeds"),
                      image_embeds=batch.get("image_embeds"))
-    return chunked_cross_entropy(hidden, lm_head(params, cfg),
-                                 batch["labels"].long(), cfg.vocab_size,
-                                 chunk=rc.loss_chunk)
+    labels = batch["labels"].long()
+    if layout is None:
+        head = lm_head(params, cfg)
+    else:
+        labels = labels[layout.rows(labels.shape[0])]
+        head = (layout.whole(params.embed, 1).T if cfg.tie_embeddings
+                else layout.whole(params.lm_head, 0))
+    return chunked_cross_entropy(hidden, head, labels, cfg.vocab_size,
+                                 chunk=rc.loss_chunk, layout=layout)
 
 
 __all__ = ["Block", "CrossLayer", "DecoderBlock", "MambaLayer", "RWKVBlock",

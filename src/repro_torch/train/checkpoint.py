@@ -21,8 +21,13 @@ checkpoint written by either package restores in the other::
   for the mesh the job restarted with: each rank reads every array,
   checks its hash and keeps its block of each leaf by the leaf's spec
   (``sharding.local_block``), so a template of a sharded model's blocks
-  restores from any checkpoint of the same model. Saving from a sharded
-  train state waits for ROADMAP 18d-2.
+  restores from any checkpoint of the same model.
+* **Saving from a sharded state**: ``save_checkpoint(..., layout=)`` gathers
+  every leaf of the parameters, moments and error feedback by its spec
+  (``Layout.gather_spec``, an all-gather a split dim, on every rank); rank
+  0 of the default group writes and renames, and every rank waits on a
+  barrier after the rename, so no rank reads a half-written step. The
+  arrays equal an unsharded save of the same values, byte for byte.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from ..models.sharding import local_block, mesh_axis_sizes, mesh_coords
 from ..models.weights import (load_train_state_arrays, train_state_arrays,
@@ -41,14 +47,48 @@ from ..models.weights import (load_train_state_arrays, train_state_arrays,
 from .train_step import TrainState
 
 
-def _arrays(state: TrainState):
-    return train_state_arrays(state.params, state.opt.mu, state.opt.nu,
-                              state.opt.step, state.err)
+def _arrays(state: TrainState, layout=None):
+    """The flat leaves of ``state``; of the whole leaves gathered from a
+    sharded state's blocks where ``layout`` is given (every rank gathers;
+    ranks other than 0 get None)."""
+    if layout is None:
+        return train_state_arrays(state.params, state.opt.mu, state.opt.nu,
+                                  state.opt.step, state.err)
+    keep = dist.get_rank() == 0
+    specs = {n: layout.plan.P(*p.axes) for n, p in state.params.items()}
+
+    def whole(tensors):
+        out = {}
+        for n, t in tensors.items():
+            w = layout.gather_spec(t.detach().contiguous(), specs[n])
+            if keep:
+                out[n] = w.cpu()
+        return out
+
+    parts = [whole(t) for t in (state.params, state.opt.mu, state.opt.nu)]
+    err = whole(state.err) if state.err is not None else None
+    return (train_state_arrays(*parts, state.opt.step, err) if keep
+            else None)
 
 
 def save_checkpoint(directory: str | Path, step: int, state: TrainState,
-                    extra: Optional[dict] = None) -> Path:
+                    extra: Optional[dict] = None, layout=None) -> Path:
+    """Write ``state`` as step ``step`` under ``directory``; returns the
+    step's directory. ``layout``: the model's ``Layout`` where ``state``
+    holds a sharded model's blocks; every rank of the default group then
+    calls this together (module docstring)."""
     directory = Path(directory)
+    final = directory / f"step_{step:08d}"
+    arrays = _arrays(state, layout)
+    if arrays is not None:
+        _write(directory, step, arrays, extra)
+    if layout is not None:
+        dist.barrier()
+    return final
+
+
+def _write(directory: Path, step: int, arrays: dict,
+           extra: Optional[dict]) -> None:
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
@@ -56,7 +96,6 @@ def save_checkpoint(directory: str | Path, step: int, state: TrainState,
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    arrays = _arrays(state)
     hashes, meta = {}, {}
     for k, arr in arrays.items():
         hashes[k] = hashlib.sha1(arr.tobytes()).hexdigest()
@@ -73,7 +112,6 @@ def save_checkpoint(directory: str | Path, step: int, state: TrainState,
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)
-    return final
 
 
 def latest_step(directory: str | Path) -> Optional[int]:

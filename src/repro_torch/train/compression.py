@@ -14,29 +14,39 @@ for every l) share one scale, the largest over all of them.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..models.weights import reference_path
+from .optimizer import reduce_by_axes
 
 
 def compress_decompress(grads: Mapping[str, torch.Tensor],
-                        err: Mapping[str, torch.Tensor]
+                        err: Mapping[str, torch.Tensor], layout=None,
+                        axes: Optional[Mapping[str, Tuple[str, ...]]] = None
                         ) -> Tuple[Dict[str, torch.Tensor],
                                    Dict[str, torch.Tensor]]:
     """int8 quantize → dequantize with error feedback, per reference leaf.
 
     Returns (dequantized f32 grads, new error tensors), both keyed like
-    ``grads``. Rounding is half to even, as ``jnp.round``'s.
+    ``grads``. Rounding is half to even, as ``jnp.round``'s. On a mesh
+    (``layout``) the tensors are the rank's blocks and ``axes`` names each
+    leaf's split mesh axes: a leaf's scale is the max of ``|g + err|``
+    over the whole leaf, its blocks' maxima all-reduced (max) over those
+    axes, not the block's own.
     """
     target = {n: g.float() + err[n] for n, g in grads.items()}
     leaves: Dict[tuple, list] = {}
     for n in grads:
         leaves.setdefault(reference_path(n)[0], []).append(n)
+    amaxes = [torch.stack([target[n].abs().max() for n in names]).max()
+              for names in leaves.values()]
+    if layout is not None:
+        amaxes = reduce_by_axes(amaxes, [axes[names[0]] for names in
+                                         leaves.values()], layout, "max")
     deq, new_err = {}, {}
-    for names in leaves.values():
-        amax = torch.stack([target[n].abs().max() for n in names]).max()
+    for names, amax in zip(leaves.values(), amaxes):
         scale = torch.clamp(amax, min=1e-12) / 127.0
         for n in names:
             q = torch.clamp(torch.round(target[n] / scale), -127, 127).to(

@@ -4,9 +4,11 @@ The port of ``repro/train/optimizer.py``, written on tensors rather than
 with ``torch.optim.AdamW``, whose clipping, schedule, decay mask and bf16
 casts differ from the reference's. The state mirrors the parameters: one
 ``mu`` and one ``nu`` tensor per parameter name (``blocks.<l>.<path>``, the
-names of the port's ``Model``), and the step count. ``state_dtype`` is the
-reference's scale lever: f32 moments, or bf16 moments ("fully bf16 Adam")
-for the >= 90B policy.
+names of the port's ``Model``), and the step count. On a mesh each is the
+rank's block, laid out as its parameter (ZeRO: the state lives where its
+parameter's shard lives), and the gradient norm is summed over the
+shards. ``state_dtype`` is the reference's scale lever: f32 moments, or
+bf16 moments ("fully bf16 Adam") for the >= 90B policy.
 
 :func:`opt_update` updates the parameters and moments in place (the
 reference returns new trees); it returns them all the same, with the
@@ -20,11 +22,13 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import dataclasses
-from typing import Dict, Iterable, Mapping, NamedTuple, Tuple
+from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
+from ..models.sharding import entry_axes
 from ..models.weights import reference_path
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -58,7 +62,8 @@ def state_dtype(oc: OptConfig) -> torch.dtype:
 
 
 def opt_init(params: Mapping[str, torch.Tensor], oc: OptConfig) -> OptState:
-    """Zero moments in the state dtype, beside each parameter; step 0."""
+    """Zero moments in the state dtype, beside each parameter (on a mesh,
+    each the shape of the rank's block); step 0."""
     dt = state_dtype(oc)
     return OptState(
         mu={n: torch.zeros(p.shape, dtype=dt, device=p.device)
@@ -66,6 +71,12 @@ def opt_init(params: Mapping[str, torch.Tensor], oc: OptConfig) -> OptState:
         nu={n: torch.zeros(p.shape, dtype=dt, device=p.device)
             for n, p in params.items()},
         step=0)
+
+
+def opt_state_specs(param_specs: Mapping[str, tuple]) -> OptState:
+    """The state's spec tree: each moment takes its parameter's spec; the
+    step is replicated (``()``)."""
+    return OptState(mu=dict(param_specs), nu=dict(param_specs), step=())
 
 
 _LIBM = None
@@ -105,18 +116,57 @@ def lr_at(oc: OptConfig, step: int) -> np.float32:
     return f32(f32(warm * f32(oc.lr)) * scale)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
+def sharded_axes(layout, spec) -> Tuple[str, ...]:
+    """The mesh axes a leaf with ``spec`` is split over, in the mesh's
+    order (() for a replicated leaf)."""
+    used = {a for entry in spec for a in entry_axes(entry)}
+    return tuple(a for a in layout.mesh.mesh_dim_names if a in used)
+
+
+def reduce_by_axes(values: Sequence[torch.Tensor],
+                   axes: Sequence[Tuple[str, ...]], layout,
+                   op: str = "sum") -> list:
+    """Each 0-d ``values[i]`` reduced (``op``) over ``axes[i]``: one
+    all-reduce a set of axes, of the stacked values that share it; a value
+    with no axes as given."""
+    out = list(values)
+    groups: Dict[Tuple[str, ...], list] = {}
+    for i, ax in enumerate(axes):
+        if ax:
+            groups.setdefault(tuple(ax), []).append(i)
+    for ax, idx in groups.items():
+        red = layout.all_reduce(torch.stack([out[i] for i in idx]), ax, op)
+        for j, i in enumerate(idx):
+            out[i] = red[j]
+    return out
+
+
+def global_norm(tensors: Iterable[torch.Tensor], layout=None,
+                axes: Optional[Sequence[Tuple[str, ...]]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32. On a mesh
+    (``layout``) each tensor is a rank's block and ``axes[i]`` the mesh axes
+    its leaf is split over: each block's sum of squares is summed over
+    them (:func:`reduce_by_axes`), a replicated leaf counts once, and the
+    leaves add up in their order, as without a mesh."""
+    sqs = [torch.sum(torch.square(x.float())) for x in tensors]
+    if layout is not None:
+        sqs = reduce_by_axes(sqs, axes, layout)
     total = None
-    for x in tensors:
-        sq = torch.sum(torch.square(x.float()))
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        layout=None,
+                        axes: Optional[Mapping[str, Tuple[str, ...]]] = None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    norm = global_norm(grads.values())
+    """Every gradient scaled by ``min(1, max_norm / (norm + 1e-9))``; on a
+    mesh the norm is the whole model's (:func:`global_norm`) and the
+    scaling elementwise on each rank's blocks."""
+    norm = global_norm(grads.values(), layout,
+                       None if axes is None else [axes[n] for n in grads])
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, norm
 
@@ -148,15 +198,20 @@ def _as(x: float, dt: torch.dtype) -> float:
 
 
 def opt_update(grads: Mapping[str, torch.Tensor], state: OptState,
-               params: Mapping[str, torch.Tensor], oc: OptConfig):
+               params: Mapping[str, torch.Tensor], oc: OptConfig,
+               layout=None,
+               axes: Optional[Mapping[str, Tuple[str, ...]]] = None):
     """One AdamW step. Returns (params, state, metrics).
 
     The parameters and moments are written in place. The moment math runs
     in the state dtype: f32 for the standard policy, bf16 for the >= 90B
     policy, as the reference's (the scalar (1 - beta) products are exact
-    in f32 and only the leaf-wide tensors round).
+    in f32 and only the leaf-wide tensors round). On a mesh the tensors
+    are the rank's blocks (moments laid out as their parameters,
+    :func:`opt_state_specs`) and ``axes`` names each leaf's split mesh
+    axes: only the gradient norm needs them; the rest is elementwise.
     """
-    grads, gnorm = clip_by_global_norm(grads, oc.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, oc.grad_clip, layout, axes)
     step = state.step + 1
     lr = lr_at(oc, step)
     f32 = np.float32
@@ -184,6 +239,7 @@ def opt_update(grads: Mapping[str, torch.Tensor], state: OptState,
     return params, OptState(mu=state.mu, nu=state.nu, step=step), metrics
 
 
-__all__ = ["OptConfig", "OptState", "opt_init", "opt_update", "lr_at",
-           "clip_by_global_norm", "global_norm", "state_dtype",
+__all__ = ["OptConfig", "OptState", "opt_init", "opt_state_specs",
+           "opt_update", "lr_at", "clip_by_global_norm", "global_norm",
+           "sharded_axes", "reduce_by_axes", "state_dtype",
            "reference_leaf_name"]

@@ -13,8 +13,21 @@ mode: ``launch/train.py`` runs it under
 ``torch.use_deterministic_algorithms(True)`` on the card, which makes the
 loss trajectory reproducible bit for bit across a restart.
 
-``abstract_train_state`` belongs to the dry run and the sharded layout,
-which are not ported yet (ROADMAP A18).
+On a sharded dense or moe model (``build_model(plan=, mesh=)``) the same
+step trains the rank's blocks. Every rank is given the whole batch and
+runs its rows of it (``Layout.rows``, in ``loss_fn``); the loss is the
+global batch's mean. A leaf sharded over data axes (ZeRO) is gathered
+just before use and its gradient arrives reduce-scattered over those axes
+(``parallel.gather_from``); every other leaf's gradient, and any data axis
+its spec does not cover, is all-reduced after the backward (summed over
+the microbatches first), one bucket a set of axes. The gradient norm, the
+clipping and AdamW then run on each rank's blocks
+(``optimizer.opt_update`` with the leaves' axes), compression with one
+scale a whole leaf. With ``accum_steps > 1`` each microbatch must divide
+over the batch's axes; the step raises where it does not (the dry run,
+ROADMAP 18e, halves ``accum`` as the reference's does).
+
+``abstract_train_state`` belongs to the dry run, ROADMAP 18e.
 """
 
 from __future__ import annotations
@@ -26,7 +39,8 @@ import torch
 
 from ..models.model import Model
 from .compression import compress_decompress
-from .optimizer import OptConfig, OptState, _DTYPES, opt_init, opt_update
+from .optimizer import (OptConfig, OptState, _DTYPES, opt_init, opt_update,
+                        sharded_axes)
 
 
 class TrainState(NamedTuple):
@@ -67,6 +81,27 @@ def _value_and_grad(model: Model, params: Dict[str, torch.Tensor], batch
         for n, g in zip(names, grads)}
 
 
+def _reduce_over_data(grads: Dict[str, torch.Tensor],
+                      data_axes: Dict[str, Tuple[str, ...]], layout
+                      ) -> Dict[str, torch.Tensor]:
+    """Each gradient summed over the data axes its leaf's spec leaves
+    whole (``data_axes[name]``; those its spec splits were reduce-scattered
+    in the backward): one all-reduce of the flattened gradients of every
+    (axes, dtype) group."""
+    out = dict(grads)
+    groups: Dict[tuple, list] = {}
+    for n, g in grads.items():
+        if data_axes[n]:
+            groups.setdefault((data_axes[n], g.dtype), []).append(n)
+    for (ax, _), names in groups.items():
+        flat = layout.all_reduce(torch.cat([grads[n].reshape(-1)
+                                            for n in names]), ax)
+        for n, part in zip(names, flat.split([grads[n].numel()
+                                              for n in names])):
+            out[n] = part.view_as(grads[n])
+    return out
+
+
 def make_train_step(model: Model, oc: OptConfig,
                     sc: Optional[StepConfig] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
@@ -79,13 +114,26 @@ def make_train_step(model: Model, oc: OptConfig,
         raise ValueError(f"accum_dtype {sc.accum_dtype!r} is not one of "
                          f"{tuple(_DTYPES)}")
     adt = _DTYPES[sc.accum_dtype]
+    layout = model.layout
+    axes = data_axes = None
+    span = 1
+    if layout is not None:
+        batch_axes = layout.axes("batch")
+        span = layout.span(batch_axes)
+        axes = {n: sharded_axes(layout, spec)
+                for n, spec in model.param_specs().items()}
+        data_axes = {n: tuple(a for a in batch_axes if a not in ax)
+                     for n, ax in axes.items()}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
+        b = batch["tokens"].shape[0]
+        if (b // accum) % span:
+            raise ValueError(f"a microbatch of {b // accum} rows does not "
+                             f"divide over the batch's {span} ranks")
         if accum == 1:
             loss, grads = _value_and_grad(model, params, batch)
         else:
-            b = batch["tokens"].shape[0]
             if b % accum:
                 raise ValueError(f"global batch {b} is not a multiple of "
                                  f"accum_steps {accum}")
@@ -102,12 +150,15 @@ def make_train_step(model: Model, oc: OptConfig,
                 lsum = lsum + loss_i
             grads = {n: gs / accum for n, gs in gsum.items()}
             loss = lsum / accum
+        if layout is not None:
+            grads = _reduce_over_data(grads, data_axes, layout)
 
         err = state.err
         if sc.compress_cross_pod:
-            grads, err = compress_decompress(grads, err)
+            grads, err = compress_decompress(grads, err, layout, axes)
 
-        params, opt, metrics = opt_update(grads, state.opt, params, oc)
+        params, opt, metrics = opt_update(grads, state.opt, params, oc,
+                                          layout, axes)
         metrics["loss"] = loss
         return TrainState(params=params, opt=opt, err=err), metrics
 

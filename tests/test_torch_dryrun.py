@@ -225,16 +225,20 @@ def test_run_config_keeps_the_reference_fields_and_refuses_other_families():
     with pytest.raises(ValueError, match="'flash' is not one of"):
         model.loss({"tokens": torch.zeros((1, 4), dtype=torch.int32),
                     "labels": torch.zeros((1, 4), dtype=torch.int32)})
-    # Every family is ported: the ssm family reads rwkv_impl; the training
-    # launcher still refuses the four families it does not train yet.
+    # Every family is ported: the ssm family reads rwkv_impl, and the
+    # training launcher trains all four other families with the fields
+    # each reads (tests/test_torch_train_families.py holds them to the
+    # reference).
     RunConfig().check("ssm")
     RunConfig(rwkv_impl="scan").check("ssm")
     for arch in ("rwkv6-1.6b", "zamba2-2.7b", "whisper-base",
                  "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="A18c-train"):
-            port_train.run(arch, smoke=True, steps=1, ckpt_dir=None,
-                           resume=False, fail_at=None, seq_len=8,
-                           global_batch=2, device="cpu")
+        cfg = get_smoke(arch)
+        port_train.run_config(cfg, True, 8).check(cfg.family)
+        out = port_train.run(arch, smoke=True, steps=1, ckpt_dir=None,
+                             resume=False, fail_at=None, seq_len=8,
+                             global_batch=2, dedup=False, device="cpu")
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
 
 
 # ---------------------------------------------------------------------------

@@ -27,12 +27,27 @@ Tolerances, with their reasons:
   mesh the restore and the ``sort`` serving path are bit-equal to the
   unsharded ones;
 * ``set_matmul_reduce_dtype('bf16')``: bit-equal to the reference's
-  ``linear`` on one device.
+  ``linear`` on one device;
+* the sharded train step (2 chained steps from the reference's weights,
+  plain and with ``accum_steps=2`` and ``compress_cross_pod=True``)
+  against the reference's unsharded ``make_train_step``, with the bounds
+  of ``tests/test_torch_train.py``: loss 1e-5 and ``grad_norm`` 1e-4
+  relative (1e-3 with compression, where a value near a half quantum may
+  round either way), ``lr`` exactly; the gathered params and moments
+  within 1e-4 of each leaf's largest value on all but 1e-3 of the elements
+  (1e-2 with compression) and every element within what one flipped
+  rounding can move it (a parameter by 2 lr a step: Adam's first update is
+  the sign of a tiny gradient; a moment with compression by a quantum);
+  the gradients are summed over the ranks in another order than on one
+  device;
+* a checkpoint saved from a sharded state: every array equal, byte for
+  byte, to an unsharded save of the gathered state.
 """
 
 import functools
 import os
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -54,7 +69,8 @@ from repro_torch.models.weights import (from_reference_params,
                                         shard_params)
 from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import init_train_state
+from repro_torch.train.train_step import (StepConfig, init_train_state,
+                                          make_train_step)
 
 TOL = 1e-4
 PROMPT, CACHE_LEN, DECODE_STEPS = 11, 16, 4
@@ -76,6 +92,25 @@ SERVING = {
                            "auto"),
     "grok_tp_1x2": ("grok-1-314b", 1, 2, {}, "tp"),
 }
+# Sharded training cases: (arch, data, model, RunConfig fields, expert
+# mode), each trained plain and with accumulation and compression
+# (TRAIN_VARIANTS: accum_steps, compress_cross_pod). ep_local at capacity
+# 100 computes the reference's unsharded function (nothing drops).
+TRAIN = {
+    "smollm_1x2": ("smollm-135m", 1, 2, {}, "auto"),
+    "smollm_2x1": ("smollm-135m", 2, 1, {}, "auto"),
+    "qwen3_2x2": ("qwen3-8b", 2, 2, {}, "auto"),
+    "olmoe_sort_1x2": ("olmoe-1b-7b", 1, 2, {"moe_impl": "sort"}, "auto"),
+    "olmoe_einsum_1x2": ("olmoe-1b-7b", 1, 2, {"moe_impl": "einsum"},
+                         "auto"),
+    "olmoe_ep_local_1x2": ("olmoe-1b-7b", 1, 2,
+                           {"moe_impl": "ep_local", "moe_capacity": 100.0},
+                           "auto"),
+    "grok_tp_1x2": ("grok-1-314b", 1, 2, {}, "tp"),
+}
+TRAIN_VARIANTS = {"plain": (1, False), "accum_compress": (2, True)}
+TRAIN_OC = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 8, 2
 EP_TOKENS = 64
 EP_CASES = {"1x2": (1, 2), "2x2": (2, 2)}
 EP_FACTORS = (100.0, 0.25)
@@ -90,10 +125,12 @@ def _ref():
 
     from repro.configs import base, get_config, get_smoke
     from repro.models import RunConfig, build_model, common, mlp, sharding
+    from repro.train import checkpoint, optimizer, train_step
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, SHAPES=base.SHAPES, get_config=get_config,
         get_smoke=get_smoke, RunConfig=RunConfig, build_model=build_model,
-        common=common, mlp=mlp, sharding=sharding)
+        common=common, mlp=mlp, sharding=sharding, checkpoint=checkpoint,
+        optimizer=optimizer, train_step=train_step)
 
 
 # -- the plan and the spec trees --------------------------------------------
@@ -373,6 +410,61 @@ def _ep_local(axes, root):
     return out
 
 
+def _train_batch(cfg, step):
+    rng = np.random.default_rng([17, step])
+    tokens = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    labels = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    labels[rng.random((TRAIN_B, TRAIN_S)) < 0.2] = -1
+    return tokens.astype(np.int32), labels.astype(np.int32)
+
+
+def _train(case, root):
+    """One sharded training case on this rank: each variant's metrics and
+    the collective counts of its first step, and its state after
+    ``TRAIN_STEPS`` steps, gathered; the plain variant's state saved as a
+    checkpoint from the shards."""
+    arch, data, nmodel, fields, mode = TRAIN[case]
+    axes = {"data": data, "model": nmodel}
+    cfg = get_smoke(arch)
+    mesh = make_mesh(axes)
+    plan = resolve_plan(cfg, None, axes, mode)
+    rc = RunConfig(mesh=mesh, attn_impl="chunked", **fields)
+    with np.load(os.path.join(root, f"tree_{arch}.npz")) as f:
+        tree = shard_params(cfg, _unflat(f), plan, mesh)
+    out = {}
+    for variant, (accum, compress) in TRAIN_VARIANTS.items():
+        model = from_reference_params(cfg, tree, device="cpu", rc=rc,
+                                      plan=plan, mesh=mesh)
+        oc = OptConfig(**TRAIN_OC)
+        sc = StepConfig(accum_steps=accum, compress_cross_pod=compress)
+        state = init_train_state(model, oc, sc)
+        step_fn = make_train_step(model, oc, sc)
+        for i in range(TRAIN_STEPS):
+            tokens, labels = _train_batch(cfg, i)
+            parallel.reset_counts()
+            state, m = step_fn(state, {"tokens": torch.from_numpy(tokens),
+                                       "labels": torch.from_numpy(labels)})
+            if i == 0:
+                c = parallel.snapshot()
+                out[f"{variant}_counts"] = np.array(
+                    [c[k]["calls"] for k in parallel.KINDS])
+            for k in ("loss", "grad_norm", "lr"):
+                out[f"{variant}_{k}_{i}"] = np.asarray(float(m[k]))
+        specs = model.param_specs()
+        for part, tensors in (("params", state.params),
+                              ("mu", state.opt.mu), ("nu", state.opt.nu)):
+            for name, t in tensors.items():
+                out[f"{variant}:{part}:{name}"] = model.layout.gather_spec(
+                    t.detach(), specs[name]).numpy()
+        if variant == "plain":
+            out["state_numel"] = np.asarray(sum(
+                t.numel() for part in (state.params, state.opt.mu,
+                                       state.opt.nu) for t in part.values()))
+            save_checkpoint(os.path.join(root, f"ckpt_{case}"), TRAIN_STEPS,
+                            state, layout=model.layout)
+    return out
+
+
 def _restore(axes, root):
     """A saved unsharded train state restored onto this rank's blocks."""
     cfg = get_smoke(RESTORE_ARCH)
@@ -402,6 +494,9 @@ def _worker(rank, world, store, root):
                 cases[f"serve_{name}"] = lambda a=arch, d=data, m=model, \
                     f=fields, e=mode: _serve(a, {"data": d, "model": m},
                                              f, e, root)
+        for name, (_, data, model, _, _) in TRAIN.items():
+            if data * model == world:
+                cases[f"train_{name}"] = lambda c=name: _train(c, root)
         for name, (data, model) in EP_CASES.items():
             if data * model == world:
                 axes = {"data": data, "model": model}
@@ -573,6 +668,171 @@ def test_restore_lays_out_each_block(spawned, case):
         assert n % size == 0 and n >= size
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_train(arch, fields, variant):
+    """The reference's unsharded ``make_train_step`` from the same weights:
+    each step's (loss, grad_norm, lr) and the final state's flat leaves
+    (the checkpoint's keys)."""
+    r = _ref()
+    jax, jnp = r.jax, r.jnp
+    fields = dict(fields)
+    if fields.get("moe_impl") == "ep_local":
+        fields["moe_impl"] = "sort"   # ep_local without a mesh is sort
+    accum, compress = TRAIN_VARIANTS[variant]
+    jmodel = r.build_model(r.get_smoke(arch),
+                           plan=r.sharding.ShardingPlan.null(),
+                           rc=r.RunConfig(attn_impl="chunked", **fields),
+                           param_dtype=jnp.float32)
+    _, params, _ = _ref_tree(arch)
+    oc = r.optimizer.OptConfig(**TRAIN_OC)
+    sc = r.train_step.StepConfig(accum_steps=accum,
+                                 compress_cross_pod=compress)
+    state = r.train_step.TrainState(
+        params=params, opt=r.optimizer.opt_init(params, oc),
+        err=(jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
+             if compress else None))
+    step = jax.jit(r.train_step.make_train_step(jmodel, oc, sc))
+    metrics = []
+    cfg = get_smoke(arch)
+    for i in range(TRAIN_STEPS):
+        tokens, labels = _train_batch(cfg, i)
+        state, m = step(state, {"tokens": jnp.asarray(tokens),
+                                "labels": jnp.asarray(labels)})
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    keys, vals, _ = r.checkpoint._flatten_with_paths(
+        jax.tree.map(np.asarray, state))
+    return metrics, dict(zip(keys, vals))
+
+
+# Collective calls of one plain step (all_reduce, all_gather,
+# reduce_scatter), by case, for the smoke smollm-135m (2 layers, tied
+# embeddings, one loss chunk). Gathers: the embedding twice (lookup, head)
+# and 7 leaves a layer, each reduce-scattered back: 16 and 16. All-reduces
+# on (1, 2) (attention replicated, 3 heads; SwiGLU and vocabulary split):
+# lookup 1, SwiGLU 1 + 1 a layer (forward, backward), loss chunk 3 twice
+# (recomputed) and its hidden states' gradient 1, loss sum and count 2,
+# the norms' gradients over data 1, the gradient norm 2 (two sets of
+# split axes): 17. On (2, 1) attention is split over model too (a
+# one-rank pass-through): + 2 a layer, and the gradient norm needs 1: 20.
+TRAIN_COUNTS = {"smollm_1x2": (17, 16, 16), "smollm_2x1": (20, 16, 16)}
+
+
+def _train_close(got, want, key, bound, share, scale):
+    scale = max(1e-3, scale)
+    diff = np.abs(np.asarray(got, np.float32) - want)
+    assert diff.max() <= bound + 1e-6 * scale, key
+    assert (diff > 1e-4 * scale).mean() <= share, key
+
+
+@pytest.mark.parametrize("variant", list(TRAIN_VARIANTS))
+@pytest.mark.parametrize("case", list(TRAIN))
+def test_sharded_train_step_matches_unsharded_reference(spawned, case,
+                                                        variant):
+    """Loss, grad_norm and lr of each step, and the params and moments
+    after the last, gathered on every rank, against the reference's
+    unsharded step; the collective counts of one step pinned where
+    ``TRAIN_COUNTS`` gives them, and the same on every rank."""
+    from repro_torch.models.weights import reference_key, reference_path
+
+    arch, data, nmodel, fields, _ = TRAIN[case]
+    world = data * nmodel
+    metrics, want = _ref_train(arch, tuple(sorted(fields.items())), variant)
+    compress = TRAIN_VARIANTS[variant][1]
+    prefix = {"params": ".params", "mu": ".opt/.mu", "nu": ".opt/.nu"}
+    lr_sum = sum(m["lr"] for m in metrics)
+    counts = None
+    for rank in range(world):
+        got = np.load(os.path.join(spawned, f"train_{case}_{rank}.npz"))
+        for i, m in enumerate(metrics):
+            assert abs(float(got[f"{variant}_loss_{i}"]) - m["loss"]) <= \
+                1e-5 * abs(m["loss"]), (rank, i)
+            gtol = 1e-3 if compress else 1e-4
+            assert abs(float(got[f"{variant}_grad_norm_{i}"])
+                       - m["grad_norm"]) <= gtol * m["grad_norm"], (rank, i)
+            assert float(got[f"{variant}_lr_{i}"]) == m["lr"]
+        c = tuple(int(n) for n in got[f"{variant}_counts"])
+        assert counts is None or c == counts
+        counts = c
+        n_keys = 0
+        for key in got.files:
+            if not key.startswith(variant + ":"):
+                continue
+            _, part, name = key.split(":")
+            path, idx = reference_path(name)
+            w = want[reference_key(prefix[part], path)][idx]
+            bound = 2.0 * lr_sum * 1.001 if part == "params" else (
+                max(1e-3, float(np.abs(w).max())) * (2.0 if compress
+                                                     else 1e-4))
+            _train_close(got[key], w, key, bound,
+                         share=1e-2 if compress else 1e-3,
+                         scale=float(np.abs(w).max()))
+            n_keys += 1
+        assert n_keys == 3 * len(dict(build_model(
+            get_smoke(arch), device="meta").named_parameters()))
+    if variant == "plain" and case in TRAIN_COUNTS:
+        assert counts == TRAIN_COUNTS[case], counts
+
+
+@pytest.mark.parametrize("case", ["smollm_2x1", "qwen3_2x2"])
+def test_sharded_checkpoint_equals_unsharded_save(spawned, case, tmp_path):
+    """The plain variant's checkpoint, saved from the shards (rank 0
+    writes the gathered leaves): the reference's ``restore_checkpoint``
+    and an unsharded port model take it, every array equals an unsharded
+    save of the same (gathered) state byte for byte, and a rank held less
+    than the whole state."""
+    r = _ref()
+    arch = TRAIN[case][0]
+    cfg = get_smoke(arch)
+    path = os.path.join(spawned, f"ckpt_{case}")
+    got = np.load(os.path.join(spawned, f"train_{case}_0.npz"))
+    model = build_model(cfg, device="cpu")
+    state = init_train_state(model, OptConfig(**TRAIN_OC))
+    state, manifest = restore_checkpoint(path, state)
+    assert manifest["step"] == TRAIN_STEPS == state.opt.step
+    whole = 0
+    with torch.no_grad():
+        for part, tensors in (("params", state.params),
+                              ("mu", state.opt.mu), ("nu", state.opt.nu)):
+            for name, t in tensors.items():
+                np.testing.assert_array_equal(t.numpy(),
+                                              got[f"plain:{part}:{name}"])
+                t.copy_(torch.from_numpy(got[f"plain:{part}:{name}"]))
+                whole += t.numel()
+    assert int(got["state_numel"]) < whole
+    save_checkpoint(tmp_path / "whole", TRAIN_STEPS, state)
+    import json
+    sharded, plain = (json.loads((p / f"step_{TRAIN_STEPS:08d}" /
+                                  "manifest.json").read_text())
+                      for p in (Path(path), tmp_path / "whole"))
+    assert sharded == plain
+    with np.load(Path(path) / f"step_{TRAIN_STEPS:08d}" / "arrays.npz") as a, \
+            np.load(tmp_path / "whole" / f"step_{TRAIN_STEPS:08d}" /
+                    "arrays.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    jmodel = r.build_model(r.get_smoke(arch),
+                           plan=r.sharding.ShardingPlan.null(),
+                           param_dtype=r.jnp.float32)
+    template = r.train_step.init_train_state(
+        jmodel, r.jax.random.PRNGKey(0), r.optimizer.OptConfig())
+    _, ref_manifest = r.checkpoint.restore_checkpoint(path, template)
+    assert ref_manifest["step"] == TRAIN_STEPS
+
+
+def test_sharded_training_refuses_the_other_families():
+    """Training the four other families on a mesh waits for 18d-2: their
+    sharded build and a mesh in their RunConfig raise, naming it."""
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b", "whisper-base",
+                 "llama-3.2-vision-90b"):
+        cfg = get_smoke(arch)
+        with pytest.raises(NotImplementedError, match="18d-2"):
+            RunConfig(mesh=object()).check(cfg.family)
+        with pytest.raises(NotImplementedError, match="18d-2"):
+            build_model(cfg, device="meta", mesh=object(),
+                        plan=resolve_plan(cfg, None, {"data": 2}))
+
+
 # -- one rank, in this process ------------------------------------------------
 
 
@@ -652,3 +912,86 @@ def test_kv_heads_follow_global_q_heads():
     # Unsharded, or kv split alike: as given.
     assert _kv_for_heads(k, k, cfg, None, 12)[0] is k
     assert _kv_for_heads(k[:, :, :2], k, cfg, Rank(1), 6)[0].shape[2] == 2
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b"])
+def test_one_rank_train_step_is_bit_equal(world_one, arch):
+    """On a (1, 1) mesh the sharded train step forms the unsharded one's
+    operations (the vocabulary-parallel loss is ``torch.logsumexp``'s
+    arithmetic over one rank; every collective a counted pass-through):
+    with accumulation and compression, two steps give the same loss,
+    grad_norm, parameters and moments bit for bit, and a checkpoint saved
+    from the shards holds the unsharded save's arrays."""
+    # One thread: the CPU's multithreaded index and scatter gradients add
+    # in a varying order, so two unsharded runs could differ.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _one_rank_train_step(world_one, arch)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _one_rank_train_step(world_one, arch):
+    axes = {"data": 1, "model": 1}
+    mesh = make_mesh(axes)
+    cfg = get_smoke(arch)
+    plan = resolve_plan(cfg, None, axes)
+    oc = OptConfig(**TRAIN_OC)
+    sc = StepConfig(accum_steps=2, compress_cross_pod=True)
+    runs = []
+    for sharded in (False, True):
+        kw = dict(plan=plan, mesh=mesh) if sharded else {}
+        model = build_model(cfg, device="cpu", rc=RunConfig(
+            attn_impl="chunked", loss_chunk=4),
+            generator=torch.Generator().manual_seed(3), **kw)
+        state = init_train_state(model, oc, sc)
+        step_fn = make_train_step(model, oc, sc)
+        metrics = []
+        parallel.reset_counts()
+        for i in range(TRAIN_STEPS):
+            tokens, labels = _train_batch(cfg, i)
+            state, m = step_fn(state, {"tokens": torch.from_numpy(tokens),
+                                       "labels": torch.from_numpy(labels)})
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
+        counts = parallel.snapshot()
+        save_checkpoint(world_one / f"ckpt_{sharded}", TRAIN_STEPS, state,
+                        layout=model.layout)
+        runs.append((metrics, state, counts))
+    (want, plain, none), (got, state, counts) = runs
+    assert got == want
+    assert all(v["calls"] == 0 for v in none.values())
+    assert all(counts[k]["calls"] > 0 for k in parallel.KINDS)
+    for part in ("params", "err"):
+        for name, t in getattr(state, part).items():
+            assert torch.equal(t, getattr(plain, part)[name]), (part, name)
+    for part in ("mu", "nu"):
+        for name, t in getattr(state.opt, part).items():
+            assert torch.equal(t, getattr(plain.opt, part)[name]), name
+    with np.load(world_one / "ckpt_True" / "step_00000002" / "arrays.npz") \
+            as a, np.load(world_one / "ckpt_False" / "step_00000002" /
+                          "arrays.npz") as b:
+        assert a.files == b.files
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
+
+
+def test_opt_state_specs_mirror_the_parameters():
+    """The moments take their parameter's spec and the step is replicated,
+    as the reference's ``opt_state_specs`` lays out its state."""
+    from repro_torch.train.optimizer import opt_state_specs
+
+    r = _ref()
+    cfg = get_smoke("qwen3-8b")
+    axes = {"data": 2, "model": 2}
+    model = build_model(cfg, device="meta")
+    specs = model.param_specs(resolve_plan(cfg, None, axes))
+    got = opt_state_specs(specs)
+    assert got.mu == specs and got.nu == specs and got.step == ()
+    assert got.mu is not specs
+    jcfg = r.get_smoke("qwen3-8b")
+    jmodel = r.build_model(jcfg, plan=r.sharding.resolve_plan(jcfg, None,
+                                                              axes))
+    want = r.optimizer.opt_state_specs(jmodel.abstract_params()[1])
+    assert tuple(want.step) == got.step
+    assert _ref_specs(want.mu) == reference_specs(
+        model, resolve_plan(cfg, None, axes))
