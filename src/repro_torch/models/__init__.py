@@ -20,9 +20,9 @@ trained through chunked attention.
   weights.py     — the reference's params tree and train state carried to
                    and from the port, whole or as a rank's blocks
 
-Each mirrors its namesake in ``repro.models``; dense and moe models run
-on a ``torch.distributed`` device mesh, the other families wait for
-ROADMAP 18d-2.
+Each mirrors its namesake in ``repro.models``; a model of every family
+runs on a ``torch.distributed`` device mesh (``build_model(plan=,
+mesh=)``), served and trained.
 """
 
 from .model import Model, build_model

@@ -41,7 +41,14 @@ over the heads' axes (``parallel.copy_to``), so each arrives whole and
 equal on every rank. Where the
 q heads are sharded and the kv heads are not, the rank's q heads read the
 kv group of their *global* index (:func:`_kv_for_heads`). Where neither
-divides the model axis, attention is replicated. A decode cache whose
+divides the model axis, attention is replicated. A cross layer's
+``kv_x`` (whisper's encoder output, the VLM's image embeddings) must come
+copied in over the heads' axes (``parallel.copy_to``) by the caller, as
+``transformer.forward`` does once for every cross layer: the encoder's
+gradient is then summed over its uses in the order of the unsharded
+model, and all-reduced once. The VLM's ``gate`` scales the output after
+the row-parallel all-reduce, so every rank computes its whole gradient
+once. Its cross K/V cache holds the rank's kv heads. A decode cache whose
 sequence is split over mesh axes (``seq_axes``) is written only by the
 rank that holds ``pos``, and the softmax combines the ranks' partials:
 the max, then the sum of exponentials, then the weighted values, each an

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .parallel import reduce_from
+from .parallel import copy_to, reduce_from
 
 # The layout whose blocks weight() keeps while a sharded model is drawn.
 _DRAWING = None
@@ -104,6 +104,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dt)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   layout, axes: Sequence[str], width: int) -> torch.Tensor:
+    """:func:`rms_norm` over a last dim of ``width`` whose columns are
+    split over the mesh ``axes``: ``x`` and ``scale`` hold the rank's
+    columns. Each rank's mean square, weighted by its share of the
+    columns, is summed over ``axes`` forward and backward (every rank's
+    columns read the total, so its gradient is the sum of theirs). Over
+    one rank the weight is 1.0 and the arithmetic :func:`rms_norm`'s, bit
+    for bit; without ``axes`` it is :func:`rms_norm`."""
+    if not axes:
+        return rms_norm(x, scale, eps)
+    dt = x.dtype
+    x = x.float()
+    part = torch.mean(x * x, dim=-1, keepdim=True) * (x.shape[-1] / width)
+    var = copy_to(reduce_from(part, layout, axes), layout, axes)
+    out = x * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(dt)
+
+
+def head_block(layout, axes: Sequence[str], heads: int,
+               what: str) -> Tuple[int, int]:
+    """(first, count): the rank's contiguous block of ``heads`` heads
+    split over the mesh ``axes`` (all of them, from 0, without axes).
+    Raises ``ValueError`` where ``heads`` does not divide over them: a
+    recurrent mixer runs whole heads on each rank."""
+    if not axes:
+        return 0, heads
+    n = layout.span(axes)
+    if heads % n:
+        raise ValueError(f"{what}: {heads} heads do not divide over "
+                         f"{tuple(axes)} ({n} ranks)")
+    return layout.index(axes) * (heads // n), heads // n
+
+
+def replicated_part(t: torch.Tensor, layout, axes: Sequence[str],
+                    part) -> torch.Tensor:
+    """``t[part]`` of a replicated weight of which the rank uses only
+    ``part``: its gradient summed over ``axes`` (``parallel.copy_to``),
+    so it arrives whole on every rank. ``t`` itself without axes."""
+    if not axes:
+        return t
+    return copy_to(t, layout, axes)[part]
 
 
 def head_rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -196,6 +240,7 @@ def constrain(x: torch.Tensor, layout, *logical) -> torch.Tensor:
 
 
 __all__ = ["weight", "param_axes", "attach_axes", "param_specs",
-           "drawing_blocks", "dense_init", "rms_norm", "head_rms_norm",
+           "drawing_blocks", "dense_init", "rms_norm", "rms_norm_split",
+           "head_block", "replicated_part", "head_rms_norm",
            "rope_frequencies", "apply_rope", "set_matmul_reduce_dtype",
            "reduce_dtype", "linear", "linear_rows", "constrain"]

@@ -30,12 +30,16 @@ over the call's B·S tokens. Both run under ``torch.no_grad()``.
 :func:`cache_specs` gives every family's cache specs under a plan, the
 reference's ``init_caches`` specs: a KV cache leaf is sharded by
 :func:`kv_spec` (batch, then kv heads, then the sequence on whatever
-``seq_kv`` axes those two left free). On a mesh (a dense or moe model
+``seq_kv`` axes those two left free). On a mesh (a model of any family
 built with a plan, ``Transformer.layout``) the entry points take the whole
-batch on every rank, keep the rank's rows, hold the rank's block of every
-cache, and return the whole logits on every rank; a cache whose sequence
-is split is written, in prefill and in decode, only where the rank holds
-the position.
+batch on every rank, stub embeddings included, keep the rank's rows, hold
+the rank's block of every cache, and return the whole logits on every
+rank; a cache whose sequence is split is written, in prefill and in
+decode, only where the rank holds the position. The cross K/V caches hold
+the rank's kv heads; the Mamba2 conv cache the rank's channels, which are
+its heads' (``models/ssm.py``); the WKV and SSD states and the token-shift
+carries are whole on every model rank, so the mixers gather their heads'
+states after each call (``models/rwkv.py``, ``models/ssm.py``).
 """
 
 from __future__ import annotations
@@ -51,9 +55,9 @@ from .attention import attention, decode_attention
 from .common import constrain, rms_norm
 from .mlp import mlp
 from .sharding import ShardingPlan, entry_axes
-from .transformer import (RunConfig, Transformer, check_shardable,
+from .transformer import (RunConfig, Transformer, _rwkv_block,
                           check_stub_inputs, embed_tokens, encode, ffn,
-                          lm_head)
+                          lm_head, rank_rows)
 
 
 def kv_spec(plan: ShardingPlan, ndim: int) -> tuple:
@@ -134,7 +138,6 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
     sequences; on ``layout``'s mesh the rank's blocks of them."""
     specs = None
     if layout is not None:
-        check_shardable(cfg.family)
         specs = cache_specs(cfg, layout.plan)
     out = {}
     for name, (shape, f32) in cache_shapes(cfg, batch, seq_len).items():
@@ -147,7 +150,7 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def seq_axes(layout) -> tuple:
-    """The mesh axes a dense/moe KV cache's sequence is split over."""
+    """The mesh axes a self-attention KV cache's sequence is split over."""
     if layout is None:
         return ()
     return entry_axes(kv_spec(layout.plan, 5)[2])
@@ -171,14 +174,11 @@ def _logits(params: Transformer, cfg: ModelConfig,
     return logits
 
 
-def _local_rows(layout, tokens: torch.Tensor) -> torch.Tensor:
-    """The rank's rows of the whole batch ``tokens`` (all rows without a
-    mesh), recorded as the call's rows for ``constrain``."""
-    if layout is None:
-        return tokens
-    tokens = tokens[layout.rows(tokens.shape[0])]
-    layout.batch_rows = tokens.shape[0]
-    return tokens
+def _swiglu(p, cfg: ModelConfig, x: torch.Tensor, layout) -> torch.Tensor:
+    """x plus the block p's SwiGLU on ``ln2`` of x, then the block's
+    constraint."""
+    x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+    return constrain(x, layout, "batch", None, None)
 
 
 @torch.no_grad()
@@ -197,7 +197,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     layout = params.layout
     b, s = tokens.shape
     cache_len = cache_len or s
-    tokens = _local_rows(layout, tokens)
+    tokens, audio_embeds, image_embeds = rank_rows(layout, tokens,
+                                                   audio_embeds, image_embeds)
     x = constrain(embed_tokens(params, tokens), layout, "batch", None, None)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     c = init_caches(cfg, b, cache_len, cache_dtype, x.device, layout)
@@ -219,10 +220,11 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 
     def cross_attn(p, ln, x_, src, k_cache, v_cache):
         """x_ plus the gated cross-attention p over src through B4; its
-        keys and values written into the cross caches."""
+        keys and values (the rank's kv heads) written into the cross
+        caches."""
         out = attention(p, cfg, rms_norm(x_, ln, cfg.norm_eps), None,
                         kv_x=src, causal=False, impl="pallas",
-                        return_kv=True)
+                        return_kv=True, layout=layout)
         k_cache.copy_(out.k.to(cache_dtype))
         v_cache.copy_(out.v.to(cache_dtype))
         return x_ + out.out
@@ -234,18 +236,14 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             x = constrain(x, layout, "batch", None, None)
     elif cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
-        zero_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
+        b_loc = x.shape[0]
+        zero_prev = torch.zeros((b_loc, 1, cfg.d_model), dtype=x.dtype,
                                 device=x.device)
-        zero_state = torch.zeros((b, h, n, n), dtype=torch.float32,
+        zero_state = torch.zeros((b_loc, h, n, n), dtype=torch.float32,
                                  device=x.device)
         for layer, p in enumerate(params.blocks):
-            z = rms_norm(x, p.ln1, cfg.norm_eps)
-            o, tm_c, st = rwkv_mod.rwkv_time_mix(p.tm, cfg, z, zero_prev,
-                                                 zero_state, impl=rc.rwkv_impl)
-            x = x + o
-            z = rms_norm(x, p.ln2, cfg.norm_eps)
-            o, cm_c = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z, zero_prev)
-            x = x + o
+            x, tm_c, cm_c, st = _rwkv_block(p, cfg, rc, x, zero_prev,
+                                            zero_prev, zero_state, layout)
             c["tm_prev"][layer] = tm_c.to(cache_dtype)
             c["cm_prev"][layer] = cm_c.to(cache_dtype)
             c["state"][layer] = st
@@ -255,28 +253,28 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             for j, p in enumerate(group):
                 o, mc = ssm_mod.mamba_block(
                     p.mamba, cfg, rms_norm(x, p.ln, cfg.norm_eps),
-                    chunk=rc.ssd_chunk)
-                x = x + o
+                    chunk=rc.ssd_chunk, layout=layout)
+                x = constrain(x + o, layout, "batch", None, None)
                 c["conv"][g, j] = mc.conv.to(cache_dtype)
                 c["ssm"][g, j] = mc.ssm
             x = self_attn(shared, x, c["ak"][g], c["av"][g])
-            x = x + mlp(shared.mlp, rms_norm(x, shared.ln2, cfg.norm_eps))
+            x = _swiglu(shared, cfg, x, layout)
     elif cfg.family == "vlm":
         img = image_embeds.to(x.dtype)
         for g, (group, pc) in enumerate(zip(params.self_groups,
                                             params.cross_layers)):
             for j, p in enumerate(group):
                 x = self_attn(p, x, c["k"][g, j], c["v"][g, j])
-                x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+                x = _swiglu(p, cfg, x, layout)
             x = cross_attn(pc.xattn, pc.ln1, x, img, c["xk"][g], c["xv"][g])
-            x = x + mlp(pc.mlp, rms_norm(x, pc.ln2, cfg.norm_eps))
+            x = _swiglu(pc, cfg, x, layout)
     else:                                               # encdec
         enc = encode(params, cfg, rc, audio_embeds, impl="pallas")
         for layer, p in enumerate(params.blocks):
             x = self_attn(p, x, c["k"][layer], c["v"][layer])
             x = cross_attn(p.xattn, p.ln_x, x, enc, c["xk"][layer],
                            c["xv"][layer])
-            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+            x = _swiglu(p, cfg, x, layout)
     return _logits(params, cfg, x), c
 
 
@@ -294,7 +292,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     rc = rc or RunConfig()
     c = caches
     layout = params.layout
-    token = _local_rows(layout, token)
+    token, = rank_rows(layout, token)
     x = constrain(embed_tokens(params, token[:, None]), layout, "batch",
                   None, None)                            # (B, 1, D)
     seq = seq_axes(layout)
@@ -308,7 +306,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     def cross_attn(p, ln, x_, k_cache, v_cache):
         out = decode_attention(p, cfg, rms_norm(x_, ln, cfg.norm_eps), pos,
                                k_cache, v_cache, update_cache=False,
-                               rope_on_q=False, mask_to_pos=False)
+                               rope_on_q=False, mask_to_pos=False,
+                               layout=layout)
         return x_ + out.out
 
     if cfg.family in ("dense", "moe"):
@@ -319,15 +318,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
     elif cfg.family == "ssm":
         for layer, p in enumerate(params.blocks):
             tm_prev, cm_prev = c["tm_prev"][layer], c["cm_prev"][layer]
-            z = rms_norm(x, p.ln1, cfg.norm_eps)
-            o, tm_c, st = rwkv_mod.rwkv_time_mix(
-                p.tm, cfg, z, tm_prev.to(z.dtype), c["state"][layer],
-                impl="scan")
-            x = x + o
-            z = rms_norm(x, p.ln2, cfg.norm_eps)
-            o, cm_c = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z,
-                                                cm_prev.to(z.dtype))
-            x = x + o
+            x, tm_c, cm_c, st = _rwkv_block(
+                p, cfg, rc, x, tm_prev.to(x.dtype), cm_prev.to(x.dtype),
+                c["state"][layer], layout, impl="scan")
             tm_prev.copy_(tm_c.to(tm_prev.dtype))
             cm_prev.copy_(cm_c.to(cm_prev.dtype))
             c["state"][layer] = st
@@ -340,26 +333,26 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
                 o, mc = ssm_mod.mamba_step(
                     p.mamba, cfg, z,
                     ssm_mod.MambaCache(conv=conv.to(z.dtype),
-                                       ssm=c["ssm"][g, j]))
-                x = x + o
+                                       ssm=c["ssm"][g, j]), layout=layout)
+                x = constrain(x + o, layout, "batch", None, None)
                 conv.copy_(mc.conv.to(conv.dtype))
                 c["ssm"][g, j] = mc.ssm
             x = self_attn(shared, x, c["ak"][g], c["av"][g])
-            x = x + mlp(shared.mlp, rms_norm(x, shared.ln2, cfg.norm_eps))
+            x = _swiglu(shared, cfg, x, layout)
     elif cfg.family == "vlm":
         for g, (group, pc) in enumerate(zip(params.self_groups,
                                             params.cross_layers)):
             for j, p in enumerate(group):
                 x = self_attn(p, x, c["k"][g, j], c["v"][g, j])
-                x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+                x = _swiglu(p, cfg, x, layout)
             x = cross_attn(pc.xattn, pc.ln1, x, c["xk"][g], c["xv"][g])
-            x = x + mlp(pc.mlp, rms_norm(x, pc.ln2, cfg.norm_eps))
+            x = _swiglu(pc, cfg, x, layout)
     else:                                               # encdec
         for layer, p in enumerate(params.blocks):
             x = self_attn(p, x, c["k"][layer], c["v"][layer])
             x = cross_attn(p.xattn, p.ln_x, x, c["xk"][layer],
                            c["xv"][layer])
-            x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+            x = _swiglu(p, cfg, x, layout)
     return _logits(params, cfg, x), caches
 
 

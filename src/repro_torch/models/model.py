@@ -4,7 +4,7 @@
 The port of ``repro/models/model.py``. The reference's ``Model`` holds a
 config, a sharding plan and a ``RunConfig`` and takes the params on every
 call; here the module owns its weights and its ``RunConfig``, so the calls
-take none. ``build_model(plan=, mesh=)`` places a dense or moe model on a
+take none. ``build_model(plan=, mesh=)`` places a model of any family on a
 ``torch.distributed`` device mesh: each rank draws every leaf whole, in
 the unsharded build's order and from the same generator, keeps its block
 and frees the rest, so the ranks together hold exactly the unsharded
@@ -27,7 +27,7 @@ from . import decoding, transformer
 from .common import drawing_blocks, param_specs
 from .parallel import Layout
 from .sharding import ShardingPlan
-from .transformer import RunConfig, check_shardable
+from .transformer import RunConfig
 
 
 class Model(transformer.Transformer):
@@ -106,9 +106,10 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     With an active ``plan`` and a ``DeviceMesh`` ``mesh`` (both, or
     neither: ``ValueError``) every rank of the mesh calls this together
     and holds its blocks (module docstring); ``rc.mesh``, which
-    ``moe_impl='ep_local'`` reads, must then be None or this mesh. Only
-    dense and moe models shard (``NotImplementedError`` naming ROADMAP
-    18d-2 for the others).
+    ``moe_impl='ep_local'`` reads, must then be None or this mesh. Every
+    family shards; the RWKV and Mamba2 mixers need their heads to divide
+    over the plan's ``ff`` axes (``ValueError`` on the first call where
+    they do not).
     """
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
@@ -120,7 +121,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
                          "mesh")
     if not active:
         return Model(cfg, generator, dtype, dev, rc)
-    check_shardable(cfg.family)
     if rc is not None and rc.mesh is not None and rc.mesh is not mesh:
         raise ValueError("RunConfig.mesh and build_model's mesh differ")
     layout = Layout(plan, mesh)

@@ -20,6 +20,29 @@ The reference computes both with XLA ops outside any Pallas kernel, so
 the port computes them in plain torch (einsums and a Python loop).
 Token shift uses one static learned mix vector per stream, as the
 reference does.
+
+On a mesh (``layout``) the weights keep the reference's specs: ``wr``,
+``wk``, ``wv``, ``wg`` ``("embed", "ff")``, ``wo`` ``("ff", "embed")``,
+the channel mix's ``wk``/``wv`` a column/row pair and its ``wr``
+``("embed", None)``; every ``embed`` dim is gathered over data just before
+use (ZeRO). The time mix is **head-parallel**: a rank's column block of
+``wr``/``wk``/``wv``/``wg`` is a contiguous block of whole heads (``H``
+must divide over ``ff``'s axes), so the recurrence runs on the rank's
+heads alone, with no collective inside it, and ``wo``'s row block takes
+its output row-parallel. Gathering the projections instead would move
+four (B, T, d) activations a layer and run every head on every rank. Its
+collectives a layer, forward: one all-reduce of a (B, T, 1) mean square
+(``ln_x`` normalises over the whole d: :func:`common.rms_norm_split`),
+one of the (B, T, d) output; where the caller keeps the state (serving),
+one all-gather of the (B, H/n, N, N) WKV state into the cache, whose spec
+holds it whole on every model rank (training keeps none). The token-shift
+carries are the block's input, whole on every rank. Backward, the inputs
+of the split products (``xr``, ``xk``, ``xv``, ``xg``, the LoRA's
+activation) and the replicated vectors a rank uses a part of (``w0``,
+``u``, ``ln_x``, ``w_b``) have their gradients all-reduced over ``ff``'s
+axes (``parallel.copy_to``), so each arrives whole. The channel mix is a
+SwiGLU-like pair: ``xk`` copied in, the value product row-parallel, one
+all-reduce; ``wr`` runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -30,7 +53,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import dense_init, rms_norm, weight
+from .common import (dense_init, head_block, linear_rows, replicated_part,
+                     rms_norm, rms_norm_split, weight)
+from .parallel import copy_to
 
 
 def rwkv_dims(cfg: ModelConfig):
@@ -117,8 +142,11 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int,
                           device=device))
 
 
-def _projections(p: RWKVTimeMix, x: torch.Tensor, x_prev: torch.Tensor):
-    """Shared front-end of the time mix: projections and decay."""
+def _projections(p: RWKVTimeMix, x: torch.Tensor, x_prev: torch.Tensor,
+                 layout=None, axes=(), ch=slice(None)):
+    """Shared front-end of the time mix: projections and decay. On a mesh
+    r, k, v, g and log w are the rank's channels ``ch`` (module
+    docstring)."""
     shifted, carry = _token_shift(x, x_prev)
     mu = p.mix.to(x.dtype)
     xr = _mix(x, shifted, mu[0])
@@ -126,12 +154,25 @@ def _projections(p: RWKVTimeMix, x: torch.Tensor, x_prev: torch.Tensor):
     xv = _mix(x, shifted, mu[2])
     xg = _mix(x, shifted, mu[3])
     xw = _mix(x, shifted, mu[4])
-    r = xr @ p.wr
-    k = xk @ p.wk
-    v = xv @ p.wv
-    g = torch.nn.functional.silu(xg @ p.wg)
-    lora = torch.tanh(xw.float() @ p.w_a) @ p.w_b
-    logw = -torch.exp(torch.clamp(p.w0 + lora, -8.0, 1.0))  # log w ∈ [-e, 0)
+    wr, wk, wv, wg, w_a = p.wr, p.wk, p.wv, p.wg, p.w_a
+    w_b, w0 = p.w_b, p.w0
+    if layout is not None:
+        wr, wk, wv, wg, w_a = (layout.whole(w, 0)
+                               for w in (wr, wk, wv, wg, w_a))
+        if axes:
+            xr, xk, xv, xg = (copy_to(t, layout, axes)
+                              for t in (xr, xk, xv, xg))
+        w_b = replicated_part(w_b, layout, axes, (slice(None), ch))
+        w0 = replicated_part(w0, layout, axes, ch)
+    r = xr @ wr
+    k = xk @ wk
+    v = xv @ wv
+    g = torch.nn.functional.silu(xg @ wg)
+    a = torch.tanh(xw.float() @ w_a)
+    if layout is not None and axes:
+        a = copy_to(a, layout, axes)
+    lora = a @ w_b
+    logw = -torch.exp(torch.clamp(w0 + lora, -8.0, 1.0))  # log w ∈ [-e, 0)
     return r, k, v, g, logw, carry
 
 
@@ -210,32 +251,62 @@ def rwkv_chunked(r, k, v, logw, u, state, chunk: int = 16):
 RWKV_IMPLS = ("chunked", "scan")
 
 
+def _rows(x: torch.Tensor, w: torch.Tensor, layout, axes) -> torch.Tensor:
+    """``x @ w`` with ``w`` the rank's rows over ``axes``: row-parallel,
+    the partial products all-reduced (``common.linear_rows``)."""
+    return linear_rows(x, w, layout, axes) if axes else x @ w
+
+
 def rwkv_time_mix(p: RWKVTimeMix, cfg: ModelConfig, x: torch.Tensor,
                   x_prev: torch.Tensor, state: torch.Tensor,
-                  impl: str = "chunked"):
+                  impl: str = "chunked", layout=None,
+                  keep_state: bool = True):
     """x (B,T,d) → (B,T,d), carry, state. ``impl`` ``chunked`` or
-    ``scan``; like the reference, any other value runs the scan."""
+    ``scan``; like the reference, any other value runs the scan.
+
+    On a mesh ``state`` is the whole (B, H, N, N) state (the cache's
+    block); the rank runs its heads and the returned state is gathered
+    whole again, or None where ``keep_state`` is False (training)."""
     b, t, d = x.shape
     h, n = rwkv_dims(cfg)
-    r, k, v, g, logw, carry = _projections(p, x, x_prev)
+    axes = layout.axes("ff") if layout is not None else ()
+    first, hl = head_block(layout, axes, h, "the RWKV time mix")
+    ch = slice(first * n, (first + hl) * n)
+    r, k, v, g, logw, carry = _projections(p, x, x_prev, layout, axes, ch)
+    u = p.u if layout is None else replicated_part(p.u, layout, axes, ch)
     fn = rwkv_chunked if impl == "chunked" else rwkv_scan
-    o, s_final = fn(r.reshape(b, t, h, n), k.reshape(b, t, h, n),
-                    v.reshape(b, t, h, n), logw.reshape(b, t, h, n),
-                    p.u.reshape(h, n), state)
-    o = o.reshape(b, t, d).to(x.dtype)
-    o = rms_norm(o, p.ln_x, cfg.norm_eps) * g
-    return o @ p.wo, carry, s_final
+    o, s_final = fn(r.reshape(b, t, hl, n), k.reshape(b, t, hl, n),
+                    v.reshape(b, t, hl, n), logw.reshape(b, t, hl, n),
+                    u.reshape(hl, n), state[:, first:first + hl])
+    o = o.reshape(b, t, hl * n).to(x.dtype)
+    if layout is None:
+        o = rms_norm(o, p.ln_x, cfg.norm_eps) * g
+        return o @ p.wo, carry, s_final
+    ln_x = replicated_part(p.ln_x, layout, axes, ch)
+    o = rms_norm_split(o, ln_x, cfg.norm_eps, layout, axes, d) * g
+    out = _rows(o, layout.whole(p.wo, 1), layout, axes)
+    if not keep_state:
+        s_final = None
+    elif axes:
+        s_final = layout.all_gather(s_final, axes, 1)
+    return out, carry, s_final
 
 
 def rwkv_channel_mix(p: RWKVChannelMix, cfg: ModelConfig, x: torch.Tensor,
-                     x_prev: torch.Tensor):
+                     x_prev: torch.Tensor, layout=None):
     shifted, carry = _token_shift(x, x_prev)
     mu = p.mix.to(x.dtype)
     xk = _mix(x, shifted, mu[0])
     xr = _mix(x, shifted, mu[1])
-    kk = torch.square(torch.relu(xk @ p.wk))
-    out = torch.sigmoid(xr @ p.wr) * (kk @ p.wv)
-    return out, carry
+    if layout is None:
+        kk = torch.square(torch.relu(xk @ p.wk))
+        return torch.sigmoid(xr @ p.wr) * (kk @ p.wv), carry
+    axes = layout.axes("ff")
+    if axes:
+        xk = copy_to(xk, layout, axes)
+    kk = torch.square(torch.relu(xk @ layout.whole(p.wk, 0)))
+    kv = _rows(kk, layout.whole(p.wv, 1), layout, axes)
+    return torch.sigmoid(xr @ layout.whole(p.wr, 0)) * kv, carry
 
 
 __all__ = ["RWKVTimeMix", "RWKVChannelMix", "rwkv_time_mix",

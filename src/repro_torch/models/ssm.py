@@ -16,6 +16,31 @@ As in the reference, the causal depthwise conv is applied to the x stream
 only and B/C are shared across heads (one group, zamba2-2.7B's
 configuration). The reference computes all of it with XLA ops outside any
 Pallas kernel, so the port computes it in plain torch.
+
+On a mesh (``layout``) the weights keep the reference's specs and
+storage: ``in_proj`` ``("embed", "ff")``, ``conv_w`` ``(None, "ff")``,
+``out_proj`` ``("ff", "embed")``; ``embed`` dims are gathered over data
+just before use (ZeRO). ``in_proj``'s ``ff`` block is a contiguous
+column block of ``[z | xs | B | C | dt]``, which does not line up with
+those parts, so the mixer is **head-parallel** behind one all-gather:
+each rank multiplies its column block (the input copied in,
+``parallel.copy_to``) and the (B, T, P/n) products are all-gathered into
+the whole projection (``parallel.gather_from``, whose backward
+reduce-scatters: the shared B and C take every rank's part of their
+gradient). The rank then runs its contiguous block of whole heads
+(``H`` must divide over ``ff``'s axes): its block of ``z``, ``xs`` and
+``dt``, the whole B and C. That block of ``xs`` is exactly the channels
+of its ``conv_w`` block and of its block of the conv cache (spec
+``(None, None, "batch", None, "ff")``), so the conv and its decode state
+need no collective. ``_gated_out``'s norm over the whole ``d_in`` sums
+the ranks' mean squares (:func:`common.rms_norm_split`), and ``out_proj``'s
+row block takes the rank's channels row-parallel. A layer's collectives,
+forward: one all-gather of the projection, one all-reduce of a (B, T, 1)
+mean square, one of the (B, T, d) output; where the caller keeps the
+state (serving), one all-gather of the (B, H/n, N, P) SSD state into the
+cache, which holds it whole on every model rank. ``A_log``, ``D``,
+``dt_bias`` and ``norm`` are replicated; a rank reads its heads' part,
+and their gradients are all-reduced over ``ff``'s axes.
 """
 
 from __future__ import annotations
@@ -26,7 +51,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import dense_init, linear, rms_norm, weight
+from .common import (dense_init, head_block, linear, linear_rows,
+                     replicated_part, rms_norm, rms_norm_split, weight)
+from .parallel import copy_to, gather_from
 
 CONV_K = 4
 
@@ -161,52 +188,123 @@ def init_mamba_cache(cfg: ModelConfig, batch: int,
                         device=device))
 
 
+class _Split(NamedTuple):
+    """A rank's share of a Mamba2 layer on a mesh: the model axes the
+    heads are split over, its first head and head count."""
+    axes: tuple
+    first: int
+    heads: int
+
+
+def _split(cfg: ModelConfig, layout) -> Optional[_Split]:
+    if layout is None:
+        return None
+    axes = layout.axes("ff")
+    first, count = head_block(layout, axes, ssm_dims(cfg)[1], "Mamba2")
+    return _Split(axes, first, count)
+
+
 def _gated_out(p: Mamba, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
-               dtype: torch.dtype) -> torch.Tensor:
-    y = rms_norm(y.to(dtype) * torch.nn.functional.silu(z), p.norm,
-                 cfg.norm_eps)
-    return linear(y, p.out_proj)
+               dtype: torch.dtype, layout=None, sp=None) -> torch.Tensor:
+    y = y.to(dtype) * torch.nn.functional.silu(z)
+    if layout is None:
+        return linear(rms_norm(y, p.norm, cfg.norm_eps), p.out_proj)
+    hp = cfg.ssm_head_dim
+    ch = slice(sp.first * hp, (sp.first + sp.heads) * hp)
+    norm = replicated_part(p.norm, layout, sp.axes, ch)
+    y = rms_norm_split(y, norm, cfg.norm_eps, layout, sp.axes,
+                       ssm_dims(cfg)[0])
+    w = layout.whole(p.out_proj, 1)
+    return linear_rows(y, w, layout, sp.axes) if sp.axes else linear(y, w)
+
+
+def _mixer_inputs(p: Mamba, cfg: ModelConfig, x: torch.Tensor, layout,
+                  sp: Optional[_Split]):
+    """(z, xs, B, C, dt) of x (B,T,d) and the per-head ``A_log``, ``D``,
+    ``dt_bias``: the rank's heads of each on a mesh (module docstring)."""
+    d_in, h, n = ssm_dims(cfg)
+    if layout is None:
+        return (_split_proj(linear(x, p.in_proj), d_in, h, n), p.A_log, p.D,
+                p.dt_bias)
+    if sp.axes:
+        x = copy_to(x, layout, sp.axes)
+    proj = linear(x, layout.whole(p.in_proj, 0))
+    if sp.axes:
+        proj = gather_from(proj, layout, sp.axes, proj.dim() - 1)
+    z, xs, bv, cv, dt = _split_proj(proj, d_in, h, n)
+    hs = slice(sp.first, sp.first + sp.heads)
+    ch = slice(sp.first * cfg.ssm_head_dim,
+               (sp.first + sp.heads) * cfg.ssm_head_dim)
+    per_head = (replicated_part(w, layout, sp.axes, hs)
+                for w in (p.A_log, p.D, p.dt_bias))
+    return (z[..., ch], xs[..., ch], bv, cv, dt[..., hs]), *per_head
+
+
+def _whole_state(s: torch.Tensor, layout, sp: Optional[_Split],
+                 keep: bool) -> Optional[torch.Tensor]:
+    """The (B, H, N, P) state from the rank's heads: gathered over the
+    heads' axes on a mesh, None where it is not kept."""
+    if not keep:
+        return None
+    if sp is not None and sp.axes:
+        return layout.all_gather(s, sp.axes, 1)
+    return s
+
+
+def _heads_of(state: torch.Tensor, sp: Optional[_Split]) -> torch.Tensor:
+    """The rank's heads (dim 1) of a whole (B, H, N, P) state."""
+    return state if sp is None else state[:, sp.first:sp.first + sp.heads]
 
 
 def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-                cache: Optional[MambaCache] = None, chunk: int = 64):
-    """Full-sequence Mamba2 block. x (B,T,d) → (B,T,d), new cache."""
+                cache: Optional[MambaCache] = None, chunk: int = 64,
+                layout=None, keep_state: bool = True):
+    """Full-sequence Mamba2 block. x (B,T,d) → (B,T,d), new cache. On a
+    mesh (module docstring) the conv state is the rank's channel block and
+    the SSD state whole, as the cache holds them; ``keep_state`` False
+    (training) returns no SSD state."""
     b, t, _ = x.shape
-    d_in, h, n = ssm_dims(cfg)
+    sp = _split(cfg, layout)
     hp = cfg.ssm_head_dim
-    z, xs, bv, cv, dt = _split_proj(linear(x, p.in_proj), d_in, h, n)
+    (z, xs, bv, cv, dt), a_log_w, d_w, dt_bias = _mixer_inputs(
+        p, cfg, x, layout, sp)
     xs, new_conv = _causal_conv(xs, p.conv_w,
                                 cache.conv if cache is not None else None)
     xs = torch.nn.functional.silu(xs)
-    dt = torch.nn.functional.softplus(dt.float() + p.dt_bias)
-    a_log = -torch.exp(p.A_log) * dt                 # (B,T,H) ≤ 0
+    dt = torch.nn.functional.softplus(dt.float() + dt_bias)
+    a_log = -torch.exp(a_log_w) * dt                 # (B,T,H) ≤ 0
+    h = dt.shape[-1]
     xh = xs.reshape(b, t, h, hp)
     y, s_final = ssd_chunked(xh.float() * dt[..., None], a_log, bv, cv,
                              chunk=chunk,
-                             init_state=cache.ssm if cache is not None
-                             else None)
-    y = y + p.D[None, None, :, None] * xh.float()
-    out = _gated_out(p, cfg, y.reshape(b, t, d_in), z, x.dtype)
-    return out, MambaCache(conv=new_conv, ssm=s_final)
+                             init_state=_heads_of(cache.ssm, sp)
+                             if cache is not None else None)
+    y = y + d_w[None, None, :, None] * xh.float()
+    out = _gated_out(p, cfg, y.reshape(b, t, h * hp), z, x.dtype, layout, sp)
+    return out, MambaCache(conv=new_conv,
+                           ssm=_whole_state(s_final, layout, sp, keep_state))
 
 
 def mamba_step(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-               cache: MambaCache):
-    """One-token decode. x (B,1,d)."""
+               cache: MambaCache, layout=None):
+    """One-token decode. x (B,1,d); on a mesh as :func:`mamba_block`."""
     b = x.shape[0]
-    d_in, h, n = ssm_dims(cfg)
+    sp = _split(cfg, layout)
     hp = cfg.ssm_head_dim
-    z, xs, bv, cv, dt = _split_proj(linear(x, p.in_proj), d_in, h, n)
+    (z, xs, bv, cv, dt), a_log_w, d_w, dt_bias = _mixer_inputs(
+        p, cfg, x, layout, sp)
     xs, new_conv = _causal_conv(xs, p.conv_w, cache.conv)
     xs = torch.nn.functional.silu(xs)
-    dt = torch.nn.functional.softplus(dt.float() + p.dt_bias)[:, 0]
-    a = torch.exp(-torch.exp(p.A_log) * dt)          # (B,H)
+    dt = torch.nn.functional.softplus(dt.float() + dt_bias)[:, 0]
+    a = torch.exp(-torch.exp(a_log_w) * dt)          # (B,H)
+    h = dt.shape[-1]
     xh = xs.reshape(b, h, hp).float()
-    state, y = ssd_step(cache.ssm, xh * dt[..., None], a, bv[:, 0].float(),
-                        cv[:, 0].float())
-    y = y + p.D[None, :, None] * xh
-    out = _gated_out(p, cfg, y.reshape(b, 1, d_in), z, x.dtype)
-    return out, MambaCache(conv=new_conv, ssm=state)
+    state, y = ssd_step(_heads_of(cache.ssm, sp), xh * dt[..., None], a,
+                        bv[:, 0].float(), cv[:, 0].float())
+    y = y + d_w[None, :, None] * xh
+    out = _gated_out(p, cfg, y.reshape(b, 1, h * hp), z, x.dtype, layout, sp)
+    return out, MambaCache(conv=new_conv,
+                           ssm=_whole_state(state, layout, sp, True))
 
 
 __all__ = ["Mamba", "mamba_block", "mamba_step", "MambaCache",

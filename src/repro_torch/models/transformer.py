@@ -22,18 +22,20 @@ loop, which eager PyTorch runs without compiling. The families:
 ``RunConfig`` keeps every field of the reference's; a non-default value of
 a field the family does not read is refused (:meth:`RunConfig.check`).
 
-A dense or moe model built on a mesh (``model.build_model(plan=, mesh=)``)
-holds each weight's block (``models/parallel.py`` ``Layout`` in
+A model of any family built on a mesh (``model.build_model(plan=,
+mesh=)``) holds each weight's block (``models/parallel.py`` ``Layout`` in
 ``Transformer.layout``): the embedding is vocab-parallel (the rank's
 vocabulary range looked up, exact zeros elsewhere, one all-reduce), the
 head column-parallel (logits all-gathered over the vocabulary's and the
-batch's axes, so every rank holds the same logits), the attention and
-feed-forward tensor-parallel, and each weight's d_model rows are gathered
-over data just before use (ZeRO-3). ``constrain`` keeps the reference's
-call sites. Its loss is vocabulary-parallel (:func:`loss_fn`), and every
-collective on the way carries its gradient (``models/parallel.py``), so
-``train.train_step.make_train_step`` trains it. The other four families on
-a mesh wait for ROADMAP 18d-2.
+batch's axes, so every rank holds the same logits), the attention (self
+and cross) and feed-forward tensor-parallel, the RWKV and Mamba2 mixers
+head-parallel (``models/rwkv.py``, ``models/ssm.py``), and each weight's
+d_model rows are gathered over data just before use (ZeRO-3). Every rank
+is given the whole batch, stub embeddings included, and runs its rows.
+``constrain`` keeps the reference's call sites: every block ends in it.
+The loss is vocabulary-parallel (:func:`loss_fn`), and every collective
+on the way carries its gradient (``models/parallel.py``), so
+``train.train_step.make_train_step`` trains it.
 The loss avoids materialising (B, S, V) logits by taking the vocabulary
 projection and the softmax cross-entropy a sequence chunk at a time, each
 chunk checkpointed.
@@ -72,25 +74,19 @@ class RunConfig:
     mesh: object = None              # required by moe_impl='ep_local'
 
     # Fields only some families read, by family; every family reads
-    # attn_impl, remat and loss_chunk.
-    FAMILY_FIELDS = {"moe": ("moe_impl", "moe_capacity", "moe_token_chunk",
-                             "mesh"),
-                     "dense": ("mesh",),
+    # attn_impl, remat, loss_chunk and mesh (each runs on one).
+    FAMILY_FIELDS = {"moe": ("moe_impl", "moe_capacity", "moe_token_chunk"),
                      "ssm": ("rwkv_impl",), "hybrid": ("ssd_chunk",)}
-    SHARDED_FAMILIES = ("dense", "moe")
     OTHER_FAMILIES = ("moe_impl", "moe_capacity", "moe_token_chunk",
-                      "rwkv_impl", "ssd_chunk", "mesh")
+                      "rwkv_impl", "ssd_chunk")
 
     def check(self, family: str) -> None:
         """Raise on a field that ``family`` does not read set away from its
         default: the MoE fields outside the moe family, ``rwkv_impl``
-        outside ssm, ``ssd_chunk`` outside hybrid. ``mesh`` is read by
-        dense and moe; the other families raise ``NotImplementedError``
-        for it (ROADMAP 18d-2). :func:`attention` checks ``attn_impl`` and
-        :func:`moe` ``moe_impl``."""
+        outside ssm, ``ssd_chunk`` outside hybrid. Every family takes a
+        ``mesh``. :func:`attention` checks ``attn_impl`` and :func:`moe`
+        ``moe_impl``."""
         check_family(family)
-        if self.mesh is not None:
-            check_shardable(family)
         default = RunConfig()
         read = self.FAMILY_FIELDS.get(family, ())
         changed = [f for f in self.OTHER_FAMILIES if f not in read
@@ -100,15 +96,6 @@ class RunConfig:
                              f"{family} family, which keeps their defaults "
                              f"(the MoE fields are the moe family's, "
                              f"rwkv_impl the ssm's, ssd_chunk the hybrid's)")
-
-
-def check_shardable(family: str) -> None:
-    """Raise ``NotImplementedError`` for a family that does not run on a
-    mesh yet (all but dense and moe: ROADMAP 18d-2)."""
-    if family not in RunConfig.SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"the {family} family does not run on a mesh yet (ROADMAP "
-            f"18d-2); dense and moe do")
 
 
 def _norm(cfg: ModelConfig, dtype, device) -> nn.Parameter:
@@ -297,38 +284,51 @@ def _dense_block(p: Block, cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
 
 
 def _cross_block(p: CrossLayer, cfg: ModelConfig, rc: RunConfig,
-                 x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, kv_src: torch.Tensor, layout=None
+                 ) -> torch.Tensor:
     x = x + attention(p.xattn, cfg, rms_norm(x, p.ln1, cfg.norm_eps), None,
-                      kv_x=kv_src, causal=False, impl=rc.attn_impl).out
-    return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+                      kv_x=kv_src, causal=False, impl=rc.attn_impl,
+                      layout=layout).out
+    x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+    return constrain(x, layout, "batch", None, None)
 
 
 def _rwkv_block(p: RWKVBlock, cfg: ModelConfig, rc: RunConfig,
-                x: torch.Tensor, tm_prev, cm_prev, state):
+                x: torch.Tensor, tm_prev, cm_prev, state, layout=None,
+                impl: Optional[str] = None, keep_state: bool = True):
+    """An RWKV block: x, both carries and the WKV state (None where not
+    ``keep_state``). ``impl`` overrides ``rc.rwkv_impl`` (decode passes
+    ``scan``)."""
     z = rms_norm(x, p.ln1, cfg.norm_eps)
-    o, tm_carry, state = rwkv_mod.rwkv_time_mix(p.tm, cfg, z, tm_prev, state,
-                                                impl=rc.rwkv_impl)
+    o, tm_carry, state = rwkv_mod.rwkv_time_mix(
+        p.tm, cfg, z, tm_prev, state, impl=impl or rc.rwkv_impl,
+        layout=layout, keep_state=keep_state)
     x = x + o
     z = rms_norm(x, p.ln2, cfg.norm_eps)
-    o, cm_carry = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z, cm_prev)
-    return x + o, tm_carry, cm_carry, state
+    o, cm_carry = rwkv_mod.rwkv_channel_mix(p.cm, cfg, z, cm_prev, layout)
+    x = constrain(x + o, layout, "batch", None, None)
+    return x, tm_carry, cm_carry, state
 
 
 def _mamba_layer(p: MambaLayer, cfg: ModelConfig, rc: RunConfig,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, layout=None) -> torch.Tensor:
     o, _ = ssm_mod.mamba_block(p.mamba, cfg, rms_norm(x, p.ln, cfg.norm_eps),
-                               chunk=rc.ssd_chunk)
-    return x + o
+                               chunk=rc.ssd_chunk, layout=layout,
+                               keep_state=False)
+    return constrain(x + o, layout, "batch", None, None)
 
 
 def _decoder_block(p: DecoderBlock, cfg: ModelConfig, rc: RunConfig,
                    x: torch.Tensor, positions: torch.Tensor,
-                   enc: torch.Tensor) -> torch.Tensor:
+                   enc: torch.Tensor, layout=None) -> torch.Tensor:
     x = x + attention(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
-                      positions, causal=True, impl=rc.attn_impl).out
+                      positions, causal=True, impl=rc.attn_impl,
+                      layout=layout).out
     x = x + attention(p.xattn, cfg, rms_norm(x, p.ln_x, cfg.norm_eps), None,
-                      kv_x=enc, causal=False, impl=rc.attn_impl).out
-    return x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+                      kv_x=enc, causal=False, impl=rc.attn_impl,
+                      layout=layout).out
+    x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+    return constrain(x, layout, "batch", None, None)
 
 
 def _maybe_remat(fn: Callable, rc: RunConfig) -> Callable:
@@ -344,14 +344,39 @@ def encode(params: Transformer, cfg: ModelConfig, rc: RunConfig,
            ) -> torch.Tensor:
     """Whisper's encoder over the stub frame embeddings (B, enc_seq, D):
     non-causal self-attention with RoPE, SwiGLU, then ``enc_ln_f``.
-    ``impl`` overrides ``rc.attn_impl`` (serving passes ``pallas``)."""
+    ``impl`` overrides ``rc.attn_impl`` (serving passes ``pallas``). On a
+    mesh ``audio_embeds`` holds the rank's rows of the batch (the entry
+    points cut them, :func:`rank_rows`)."""
     run = rc if impl is None else dataclasses.replace(rc, attn_impl=impl)
-    x = audio_embeds
+    layout = params.layout
+    x = constrain(audio_embeds, layout, "batch", None, None)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for p in params.encoder:
         x = _maybe_remat(lambda x_, p_=p: _dense_block(
-            p_, cfg, run, x_, positions, causal=False), rc)(x)
+            p_, cfg, run, x_, positions, causal=False, layout=layout), rc)(x)
     return rms_norm(x, params.enc_ln_f, cfg.norm_eps)
+
+
+def _cross_source(src: torch.Tensor, layout) -> torch.Tensor:
+    """The keys' and values' source of every cross layer (whisper's encoder
+    output, the VLM's image embeddings), replicated over the heads' axes:
+    each rank's heads read part of it, so its gradient, summed over every
+    cross layer's uses first (in the unsharded model's order), is
+    all-reduced once over those axes (``parallel.copy_to``)."""
+    heads = layout.axes("heads") if layout is not None else ()
+    return copy_to(src, layout, heads) if heads else src
+
+
+def rank_rows(layout, tokens: torch.Tensor, *stubs: Optional[torch.Tensor]):
+    """The rank's rows of the whole batch ``tokens`` and of each stub
+    input (None stays None), the rows recorded as the call's for
+    ``constrain``; all of them without a mesh."""
+    if layout is None:
+        return (tokens,) + stubs
+    rows = layout.rows(tokens.shape[0])
+    layout.batch_rows = rows.stop - rows.start
+    return (tokens[rows],) + tuple(None if t is None else t[rows]
+                                   for t in stubs)
 
 
 def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
@@ -359,13 +384,12 @@ def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
             image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward to final hidden states (B, S, D). An encdec
     model reads ``audio_embeds``, a VLM ``image_embeds``
-    (:func:`check_stub_inputs`). On a mesh ``tokens`` is the whole batch
-    and the result the rank's rows of it."""
+    (:func:`check_stub_inputs`). On a mesh ``tokens`` and the stub inputs
+    are the whole batch and the result the rank's rows of it."""
     check_stub_inputs(cfg, audio_embeds, image_embeds)
     layout = params.layout
-    if layout is not None:
-        tokens = tokens[layout.rows(tokens.shape[0])]
-        layout.batch_rows = tokens.shape[0]
+    tokens, audio_embeds, image_embeds = rank_rows(layout, tokens,
+                                                   audio_embeds, image_embeds)
     x = constrain(embed_tokens(params, tokens), layout, "batch", None, None)
     b = x.shape[0]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -379,18 +403,20 @@ def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
             x = run(lambda x_, p_=p: _dense_block(p_, cfg, rc, x_, positions,
                                                   layout=layout), x)
     elif cfg.family == "vlm":
-        img = image_embeds.to(x.dtype)
+        img = _cross_source(image_embeds.to(x.dtype), layout)
         for group, pc in zip(params.self_groups, params.cross_layers):
             for p in group:
-                x = run(lambda x_, p_=p: _dense_block(p_, cfg, rc, x_,
-                                                      positions), x)
-            x = run(lambda x_, p_=pc: _cross_block(p_, cfg, rc, x_, img), x)
+                x = run(lambda x_, p_=p: _dense_block(
+                    p_, cfg, rc, x_, positions, layout=layout), x)
+            x = run(lambda x_, p_=pc: _cross_block(p_, cfg, rc, x_, img,
+                                                   layout), x)
     elif cfg.family == "hybrid":
         for group in params.mamba_groups:
             for p in group:
-                x = run(lambda x_, p_=p: _mamba_layer(p_, cfg, rc, x_), x)
+                x = run(lambda x_, p_=p: _mamba_layer(p_, cfg, rc, x_,
+                                                      layout), x)
             x = run(lambda x_: _dense_block(params.shared_attn, cfg, rc, x_,
-                                            positions), x)
+                                            positions, layout=layout), x)
     elif cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
         zero_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
@@ -399,12 +425,13 @@ def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
                                  device=x.device)
         for p in params.blocks:
             x = run(lambda x_, p_=p: _rwkv_block(
-                p_, cfg, rc, x_, zero_prev, zero_prev, zero_state)[0], x)
+                p_, cfg, rc, x_, zero_prev, zero_prev, zero_state, layout,
+                keep_state=False)[0], x)
     else:                                               # encdec
-        enc = encode(params, cfg, rc, audio_embeds)
+        enc = _cross_source(encode(params, cfg, rc, audio_embeds), layout)
         for p in params.blocks:
             x = run(lambda x_, p_=p: _decoder_block(p_, cfg, rc, x_,
-                                                    positions, enc), x)
+                                                    positions, enc, layout), x)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -518,9 +545,9 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
     """Mean next-token loss of ``batch`` (``tokens``, ``labels``: (B, S);
     ``audio_embeds`` or ``image_embeds`` where the family reads them).
 
-    On a mesh (dense and moe) every rank is given the whole batch and
-    runs its rows of it (``layout.rows``); the result is the global
-    batch's mean on every rank (:func:`chunked_cross_entropy`)."""
+    On a mesh every rank is given the whole batch and runs its rows of it
+    (``layout.rows``); the result is the global batch's mean on every rank
+    (:func:`chunked_cross_entropy`)."""
     layout = params.layout
     hidden = forward(params, cfg, rc, batch["tokens"],
                      audio_embeds=batch.get("audio_embeds"),
@@ -538,5 +565,5 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
 
 __all__ = ["Block", "CrossLayer", "DecoderBlock", "MambaLayer", "RWKVBlock",
            "Transformer", "RunConfig", "STUB_INPUTS", "check_stub_inputs",
-           "check_shardable", "embed_tokens", "ffn", "encode", "forward",
+           "embed_tokens", "ffn", "encode", "rank_rows", "forward",
            "lm_head", "chunked_cross_entropy", "loss_fn"]

@@ -141,16 +141,17 @@ def test_run_config_moe_fields_belong_to_the_moe_family():
         for family in ("dense", "moe"):
             with pytest.raises(ValueError, match=f"not read by the {family}"):
                 RunConfig(**fields).check(family)
-    # A mesh is read by dense and moe (sharding); the other four families
-    # do not run on one yet and say so.
+    # A mesh is read by every family (each shards, ROADMAP 18d-2); the
+    # VLM builds its blocks on a model axis of two ranks.
+    from test_torch_sharding_families import check_meta_build_on_mesh
     for family in ("dense", "moe"):
         RunConfig(mesh=object()).check(family)
     for family in ("ssm", "hybrid", "encdec", "vlm"):
         RunConfig().check(family)
         with pytest.raises(ValueError, match=f"not read by the {family}"):
             RunConfig(moe_impl="einsum").check(family)
-        with pytest.raises(NotImplementedError, match="18d-2"):
-            RunConfig(mesh=object()).check(family)
+        RunConfig(mesh=object()).check(family)
+    check_meta_build_on_mesh("llama-3.2-vision-90b", "model")
     build_model(get_smoke("olmoe-1b-7b"), device="meta",
                 rc=RunConfig(moe_impl="einsum"))
     with pytest.raises(ValueError, match="not read by the dense"):

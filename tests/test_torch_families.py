@@ -249,8 +249,11 @@ def test_run_config_fields_by_family():
     for fam in ("dense", "moe", "ssm", "encdec", "vlm"):
         with pytest.raises(ValueError, match="ssd_chunk the hybrid"):
             RunConfig(ssd_chunk=16).check(fam)
-    with pytest.raises(NotImplementedError, match="18d-2"):
-        RunConfig(mesh=object()).check("ssm")
+    # Every family runs on a mesh (ROADMAP 18d-2): the ssm family takes
+    # one in its RunConfig and builds its blocks on it.
+    from test_torch_sharding_families import check_meta_build_on_mesh
+    RunConfig(mesh=object()).check("ssm")
+    check_meta_build_on_mesh("rwkv6-1.6b", "model")
     cfg = get_smoke("rwkv6-1.6b")
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         2, cfg.vocab_size, (1, 21))).long()

@@ -228,12 +228,12 @@ def test_build_model_refuses_what_it_cannot_shard():
         build_model(cfg, device="meta", plan=plan)
     with pytest.raises(ValueError, match="both an active plan and a mesh"):
         build_model(cfg, device="meta", mesh=object())
+    # Every family shards now (ROADMAP 18d-2): each builds its blocks on a
+    # model axis of two ranks, as param_specs lays them out.
+    from test_torch_sharding_families import check_meta_build_on_mesh
     for arch in ("rwkv6-1.6b", "zamba2-2.7b", "whisper-base",
                  "llama-3.2-vision-90b"):
-        scfg = get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="18d-2"):
-            build_model(scfg, device="meta", mesh=object(),
-                        plan=resolve_plan(scfg, None, {"model": 2}))
+        check_meta_build_on_mesh(arch, "model")
     # The null plan is the unsharded model.
     model = build_model(cfg, device="meta", plan=ShardingPlan.null())
     assert model.layout is None and not model.plan.active
@@ -821,16 +821,16 @@ def test_sharded_checkpoint_equals_unsharded_save(spawned, case, tmp_path):
 
 
 def test_sharded_training_refuses_the_other_families():
-    """Training the four other families on a mesh waits for 18d-2: their
-    sharded build and a mesh in their RunConfig raise, naming it."""
+    """The four other families train on a mesh since 18d-2 (held to the
+    reference in ``tests/test_torch_sharding_families.py``): a mesh in
+    their RunConfig is accepted and each builds its ZeRO blocks on a data
+    axis of two ranks, as param_specs lays them out."""
+    from test_torch_sharding_families import check_meta_build_on_mesh
     for arch in ("rwkv6-1.6b", "zamba2-2.7b", "whisper-base",
                  "llama-3.2-vision-90b"):
         cfg = get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="18d-2"):
-            RunConfig(mesh=object()).check(cfg.family)
-        with pytest.raises(NotImplementedError, match="18d-2"):
-            build_model(cfg, device="meta", mesh=object(),
-                        plan=resolve_plan(cfg, None, {"data": 2}))
+        RunConfig(mesh=object()).check(cfg.family)
+        check_meta_build_on_mesh(arch, "data", coord=0)
 
 
 # -- one rank, in this process ------------------------------------------------
