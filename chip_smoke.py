@@ -280,13 +280,24 @@ Phases, in order; any failure raises and exits non-zero:
    training, 2 steps of 2 x 128 tokens (rwkv6 1 layer, zamba2 one group
    of 2 Mamba2 layers and the shared block, whisper whole, the VLM one
    gated cross layer): unsharded and (1, 1) bit for bit, (1, 2) for all
-   four and (2, 1) for zamba2 and whisper on the gloo ranks, each within
-   1e-5 (loss) and 1e-3 (grad_norm) of (1, 1) and its state at seeded
-   positions within phase 14 (g)'s bounds, whisper's (2, 1) checkpoint
-   saved from the shards and restored into the unsharded model; (c) B4 at
+   four on the gloo ranks (and (2, 1) on NCCL, ``scripts/shard_train.py``),
+   each within 1e-5 (loss) and 1e-3 (grad_norm) of (1, 1) and its state at
+   seeded positions within phase 14 (g)'s bounds (on NCCL also whisper's
+   (2, 1) checkpoint saved from the shards and restored into the
+   unsharded model); (c) B4 at
    each new local-head instance, the longest served prompt, against its
    plain version with its bound, SDPA's time, registers and spills;
-16. summary: a ``train_families``, a ``sharding`` (phase 15 under
+16. the dry run and the roofline (ROADMAP 18e, 18f): (a) the dry run's
+   meta train step (``launch.dryrun.count_train_step``, a stand-in mesh)
+   at phase 14's settings: its collective calls and bytes by kind and its
+   state bytes a rank must equal what phase 14 (g) and (h) measured in
+   this run, smollm-135m on (1, 1), (2, 1), (1, 2) and olmoe-1b-7b's cut on
+   (1, 1), (1, 2); (b) the ported roofline (``launch.roofline``, f32 peak,
+   TF32 off) of every prefill of phases 6, 11, 12 and every training step
+   of phases 10, 14, and each measured time over its bound; (c)
+   ``launch.dryrun.run_cell`` for one grid cell of each family on the
+   16 x 16 stand-in mesh; at most 40 s;
+17. summary: a ``dryrun``, a ``train_families``, a ``sharding`` (phase 15 under
    ``families``), a ``families``, an ``lm_configs``, a ``training`` and a
    ``tuning`` JSON line, the card line, a ``kernels`` JSON line
    (B1, B2, B3 as the fused kernel and as the window mode, B4, the
@@ -4878,16 +4889,19 @@ def train_families_phase(dev, card, seed):
 # SHARD_FAMILY_TRAIN_CUTS, SHARD_FAMILY_TRAIN_STEPS steps of
 # SHARD_FAMILY_TRAIN_SHAPE tokens (the launcher's full-size RunConfig):
 # unsharded and (1, 1) bit for bit, then (1, 2) on the gloo ranks, and
-# (2, 1) for SHARD_FAMILY_DATA: losses 1e-5 and grad_norm 1e-3 of (1, 1)'s
+# (2, 1) on NCCL only: losses 1e-5 and grad_norm 1e-3 of (1, 1)'s
 # (relative), params and first moments at STATE_SAMPLES seeded positions
 # within phase 14 (g)'s bounds; SHARD_FAMILY_CKPT's (2, 1) checkpoint
 # saved from the shards against a (1, 1) save's arrays and restored into
 # the unsharded model. On (2, 1) the ZeRO gathers and gloo's stand-in
 # reduce-scatter carry every weight and gradient through the host twice a
-# step: rwkv6's one layer took 4.98 s a step (phase 15 alone, my chip call
-# 2, PR 25), so it trains there on the CPU only (tests), as does the VLM
-# (12 GB of weights); a checkpoint is written and read at ~9.5 s a GB, so
-# only whisper's (1.3 GB) is. (c) B4 at each local-head instance, the
+# step (on an NVIDIA H100 80GB HBM3, 700 W: rwkv6's one layer 4.98 s a
+# step, zamba2 5.36 s, whisper 2.83 s and its checkpoint ~12 s), so no
+# family trains there on gloo, to leave the smoke room for phase 16: the
+# CPU tests hold every family on (2, 1) with its checkpoint, phase 14 (g)
+# holds smollm-135m's on the card, and scripts/shard_train.py runs (N, 1)
+# on NCCL, where a checkpoint is written and read at ~9.5 s a GB, so only
+# whisper's (1.3 GB) is. (c) B4 at each local-head instance, the
 # longest served prompt, against its plain version with its bound, SDPA's
 # time and ptxas's registers and spills.
 SHARD_FAMILY_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b", "whisper-base",
@@ -4914,7 +4928,6 @@ SHARD_FAMILY_NEW = 8
 SHARD_FAMILY_TOL = {"prefill": 1e-4, "decode": 5e-2, "state": 1e-4}
 SHARD_FAMILY_TRAIN_SHAPE = (2, 128)
 SHARD_FAMILY_TRAIN_STEPS = 2
-SHARD_FAMILY_DATA = ("zamba2-2.7b", "whisper-base")
 SHARD_FAMILY_CKPT = "whisper-base"
 # Whose unsharded and (1, 1) train states do not fit the card together:
 # compared at the sampled positions.
@@ -5133,9 +5146,9 @@ def _family_train_fields(cfg):
 
 
 def _family_train_meshes(arch, ranks, backend):
-    """(1, ranks), and (ranks, 1) for SHARD_FAMILY_DATA or on NCCL (one
-    card a rank: the ZeRO collectives do not pass through the host)."""
-    data = backend == "nccl" or arch in SHARD_FAMILY_DATA
+    """(1, ranks), and (ranks, 1) on NCCL (one card a rank: the ZeRO
+    collectives do not pass through the host; module comment above)."""
+    data = backend == "nccl"
     return ((1, ranks),) + (((ranks, 1),) if data else ())
 
 
@@ -5301,7 +5314,8 @@ def shard_families(dev, card, seed, ranks=SHARD_FAMILY_MODEL,
                         torch.equal(t, getattr(sb.opt, part)[n])
                         for part in ("mu", "nu")
                         for n, t in getattr(sa.opt, part).items())
-                    if arch == SHARD_FAMILY_CKPT:
+                    if arch == SHARD_FAMILY_CKPT and (ranks, 1) in \
+                            _family_train_meshes(arch, ranks, backend):
                         one["arrays"] = checkpoint._arrays(sa)
                     del sb
                 del sa
@@ -5582,6 +5596,195 @@ def shard_families_phase(dev, card, seed, abench, rng, ptxas):
                                           SHARD_FAMILY_MODEL)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  (15) {out['phase_s']:.1f} s in all  [{card}]")
+    return out
+
+
+# Phase 16: the dry run and the roofline held to the card (ROADMAP 18e,
+# 18f). (a) launch.dryrun.count_train_step, the meta step on a stand-in
+# mesh, at phase 14's settings: smollm-135m at 8 x 1,024 tokens, f32,
+# phase 10's optimizer, phase 14's RunConfig, on (1, 1), (2, 1) and (1, 2),
+# and olmoe-1b-7b cut to MOE_TRAIN_LAYERS with 'sort' on (1, 1) and (1, 2),
+# each for rank 0: its collective calls and bytes by kind and its state
+# bytes must equal what phase 14 (g)/(h) measured on rank 0 in this run
+# (one step's counts; the live counter counts a rank's input tensor on
+# NCCL and gloo alike, so the gloo meshes follow the same rule). (b) The
+# ported roofline of every prefill phases 6, 11 and 12 timed (batch 1, the
+# prompt's length, bf16 caches of SERVE_CACHE_LEN, the served depth) and
+# of every training step phases 10 and 14 timed (their batch and length,
+# f32 AdamW state), at the f32 peak outside the tensor cores (TF32 is off
+# in this run): t_compute, t_memory and the measured time over the larger.
+# (c) launch.dryrun.run_cell in this process for DRYRUN_CELLS, one grid
+# cell of each family on the single-pod stand-in mesh: status ok, the
+# reference's keys, B4's meta launches a rank. At most DRYRUN_PHASE_S.
+DRYRUN_CELLS = (("qwen3-8b", "decode_32k"), ("olmoe-1b-7b", "decode_32k"),
+                ("rwkv6-1.6b", "decode_32k"), ("zamba2-2.7b", "decode_32k"),
+                ("whisper-base", "prefill_32k"),
+                ("llama-3.2-vision-90b", "decode_32k"))
+DRYRUN_PHASE_S = 40.0
+
+
+def _dryrun_counts(sharded) -> dict:
+    """(16a) The meta step's counts against phase 14's measured ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import count_train_step
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.train.optimizer import OptConfig
+
+    cases = [(SHARD_TRAIN_ARCH, get_config(SHARD_TRAIN_ARCH), tag, {},
+              (TRAIN_BATCH, TRAIN_SEQ)) for tag in ("1x1", "2x1", "1x2")]
+    cases += [(MOE_TRAIN_ARCH, _moe_cfg(False), tag, {"moe_impl": "sort"},
+               MOE_TRAIN_SHAPE) for tag in ("moe_1x1", "moe_1x2")]
+    out = {}
+    for arch, cfg, tag, fields, (b, s) in cases:
+        data, model = (int(n) for n in tag.removeprefix("moe_").split("x"))
+        want = sharded[tag]
+        got = count_train_step(
+            cfg, {"data": data, "model": model}, b, s,
+            rc=RunConfig(attn_impl="chunked", loss_chunk=min(256, s),
+                         **fields), oc=OptConfig(**TRAIN_OC))
+        counted = {k: {"calls": got["collectives"]["counts"][k],
+                       "bytes": got["collectives"]["bytes"][k]}
+                   for k in got["collectives"]["counts"]}
+        measured = {k: dict(v) for k, v in want["collectives"].items()}
+        same = (counted == measured
+                and got["state_bytes"] == want["state_bytes"])
+        out[tag] = {"arch": arch, "counted": counted, "measured": measured,
+                    "state_bytes": got["state_bytes"],
+                    "measured_state_bytes": want["state_bytes"],
+                    "meta_step_s": got["meta_step_s"], "equal": same}
+        print(f"  (16a) {arch} ({data}, {model}) {b} x {s}: counted "
+              + ", ".join(f"{k} {v['calls']} ({v['bytes']} B)"
+                          for k, v in counted.items())
+              + f"; state {got['state_bytes']} B a rank; "
+              f"{'equal to' if same else 'NOT equal to'} phase 14's "
+              f"(meta step {got['meta_step_s']:.2f} s)")
+        if not same:
+            raise AssertionError(f"(16a) the dry run's count for {arch} "
+                                 f"({data}, {model}) is not phase 14's: "
+                                 f"{counted} / {got['state_bytes']} against "
+                                 f"{measured} / {want['state_bytes']}")
+    return out
+
+
+def _bound_of(cfg, shape, param_bytes, cache_bytes=0, opt_bytes=0):
+    """The ported roofline of one step on one card at the f32 peak
+    outside the tensor cores (no collectives)."""
+    from repro_torch.kernels.measure import NON_TENSOR_OPS_PER_S
+    from repro_torch.launch import roofline as rl
+
+    return rl.Roofline(
+        chips=1, flops=rl.step_flops(cfg, shape),
+        bytes_hbm=rl.hbm_bytes(cfg, shape, param_bytes, cache_bytes,
+                               opt_bytes),
+        coll_bytes=0.0, hlo_flops_raw=None, hlo_bytes_raw=None,
+        model_flops_=rl.model_flops(cfg, shape),
+        peak_flops=NON_TENSOR_OPS_PER_S)
+
+
+def _roofline_row(label, walls_s, roofs) -> dict:
+    t_c = sum(r.t_compute for r in roofs)
+    t_m = sum(r.t_memory for r in roofs)
+    bound = sum(max(r.t_compute, r.t_memory) for r in roofs)
+    wall = sum(walls_s)
+    row = {"label": label, "calls": len(roofs), "measured_s": wall,
+           "t_compute_s": t_c, "t_memory_s": t_m, "bound_s": bound,
+           "over_bound": wall / bound}
+    print(f"  (16b) {label}: {len(roofs)} calls, measured {wall:.4f} s, "
+          f"t_compute {t_c:.4f} s, t_memory {t_m:.4f} s: "
+          f"{row['over_bound']:.2f}x the bound")
+    return row
+
+
+def _roofline_ratios(serve_rec, train_rec, lm, fam, fam_train) -> list:
+    """(16b) Measured over the ported roofline for the prefills and the
+    training steps phases 6, 10, 11, 12 and 14 timed."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_bytes
+
+    def sizes(cfg):
+        model = build_model(cfg, device="meta", dtype=torch.float32)
+        return (tree_bytes(model.abstract_params().whole),
+                tree_bytes(model.abstract_caches(1, SERVE_CACHE_LEN).whole))
+
+    def prefills(label, cfg, rec):
+        pbytes, cbytes = sizes(cfg)
+        calls = rec["prefill_calls"]
+        return _roofline_row(label, [sec for _, sec in calls], [_bound_of(
+            cfg, ShapeConfig("prefill", "prefill", n, 1), pbytes, cbytes)
+            for n, _ in calls])
+
+    def step(label, cfg, b, s, ms):
+        pbytes, _ = sizes(cfg)
+        return _roofline_row(label, [ms / 1e3], [_bound_of(
+            cfg, ShapeConfig("train", "train", s, b), pbytes,
+            opt_bytes=2 * pbytes)])
+
+    rows = [prefills("phase 6 smollm-135m prefills",
+                     get_config("smollm-135m"), serve_rec)]
+    rows += [prefills(f"phase 11 {arch} prefills", get_config(arch), rec)
+             for arch, rec in lm["configs"].items()]
+    rows += [prefills(f"phase 12 {arch} prefills ({rec['layers']} layers)",
+                      _family_cfg(arch), rec)
+             for arch, rec in fam["served"].items()]
+    smollm = get_config(SHARD_TRAIN_ARCH)
+    rows.append(step("phase 10 smollm-135m step", smollm, TRAIN_BATCH,
+                     TRAIN_SEQ, train_rec["median_step_ms"]))
+    rows += [step(f"phase 14 (f) {arch} step", get_config(arch), rec["batch"],
+                  rec["seq"], rec["median_step_ms"])
+             for arch, rec in fam_train["families"].items()]
+    sharded = fam_train["sharded"]
+    for tag in ("unsharded", "1x1"):
+        rows.append(step(f"phase 14 (g) smollm-135m {tag} step", smollm,
+                         TRAIN_BATCH, TRAIN_SEQ,
+                         sharded[tag]["median_step_ms"]))
+    rows.append(step(f"phase 14 (h) olmoe-1b-7b {MOE_TRAIN_LAYERS} layers "
+                     "(1, 1) step", _moe_cfg(False), *MOE_TRAIN_SHAPE,
+                     sharded["moe_1x1"]["median_step_ms"]))
+    return rows
+
+
+def _dryrun_cells() -> list:
+    """(16c) One grid cell of each family through run_cell."""
+    from repro_torch.launch.dryrun import run_cell
+
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        res = run_cell(arch, shape)
+        if res["status"] != "ok":
+            raise AssertionError(f"(16c) {arch} x {shape}: {res}")
+        r, m = res["roofline"], res["memory"]
+        row = {"arch": arch, "shape": shape,
+               "per_device_total": m["per_device_total"],
+               "collective_calls": res["collectives"]["counts"],
+               "b4_launches": res["b4_launches"],
+               "bottleneck": r["bottleneck"],
+               **{k: r[k] for k in ("t_compute_s", "t_memory_s",
+                                    "t_collective_s")},
+               "meta_step_s": res["meta_step_s"]}
+        out.append(row)
+        print(f"  (16c) {arch} x {shape} on 16 x 16 (a model at H100 "
+              f"datasheet rates): {m['per_device_total'] / 2**30:.2f} GiB a "
+              f"rank, {r['bottleneck']}-bound (compute "
+              f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+              f"collective {r['t_collective_s']:.4g} s), B4 "
+              f"{res['b4_launches']} a rank, collectives "
+              f"{res['collectives']['counts']}")
+    return out
+
+
+def dryrun_phase(card, serve_rec, train_rec, lm, fam, fam_train) -> dict:
+    """Phase 16 (module comment above). Returns the record."""
+    t_phase = time.perf_counter()
+    out = {"counts": _dryrun_counts(fam_train["sharded"])}
+    out["roofline"] = _roofline_ratios(serve_rec, train_rec, lm, fam,
+                                       fam_train)
+    out["cells"] = _dryrun_cells()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (16) {out['phase_s']:.1f} s in all  [{card}]")
+    if out["phase_s"] > DRYRUN_PHASE_S:
+        raise AssertionError(f"(16) took {out['phase_s']:.1f} s, more than "
+                             f"{DRYRUN_PHASE_S} s")
     return out
 
 
@@ -5988,6 +6191,10 @@ def main() -> int:
         record["ptxas"].get("flash_attention", []))
     record["shard_families"] = shard_fam
     kernels.extend(shard_fam["kernels"])
+    stamp(16)
+    # 16. The dry run and the roofline held to this run's phases.
+    dry = dryrun_phase(card, serve_rec, train_rec, lm, fam, fam_train)
+    record["dryrun"] = dry
     record["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -5996,9 +6203,16 @@ def main() -> int:
                                        o.item() if hasattr(o, "item")
                                        else str(o)))
 
-    stamp(16)
-    # 16. Summary.
+    stamp(17)
+    # 17. Summary.
     sharded = fam_train["sharded"]
+    print(json.dumps({"dryrun": {
+        "phase_s": dry["phase_s"],
+        "counts_equal": {tag: rec["equal"]
+                         for tag, rec in dry["counts"].items()},
+        "over_bound": {row["label"]: row["over_bound"]
+                       for row in dry["roofline"]},
+        "cells": dry["cells"]}}))
     print(json.dumps({"train_families": {
         "phase_s": fam_train["phase_s"],
         **{arch: {k: rec[k] for k in (

@@ -3,7 +3,8 @@
 The reference's ten architectures, every family: smollm-135m, qwen3-8b,
 granite-3-2b, stablelm-12b (dense), olmoe-1b-7b, grok-1-314b (moe),
 rwkv6-1.6b (ssm), zamba2-2.7b (hybrid), whisper-base (encdec) and
-llama-3.2-vision-90b (vlm).
+llama-3.2-vision-90b (vlm). :data:`SHAPES` is the reference's grid of
+four shapes, and :func:`all_cells` its 40 (arch × shape) cells.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from . import (
     whisper_base,
     zamba2_2_7b,
 )
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, supports_shape
 
 _MODULES = {
     "whisper-base": whisper_base,
@@ -58,5 +59,18 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke()
 
 
-__all__ = ["ARCH_NAMES", "NOT_PORTED", "ModelConfig", "get_config",
-           "get_smoke"]
+def all_cells():
+    """Every (arch, shape) cell of the grid, skipped ones included:
+    ``(arch, shape name, runs, reason)`` in the reference's order."""
+    cells = []
+    for name in ARCH_NAMES:
+        cfg = get_config(name)
+        for shape in SHAPES.values():
+            ok, why = supports_shape(cfg, shape)
+            cells.append((name, shape.name, ok, why))
+    return cells
+
+
+__all__ = ["ARCH_NAMES", "NOT_PORTED", "SHAPES", "ModelConfig",
+           "ShapeConfig", "get_config", "get_smoke", "supports_shape",
+           "all_cells"]

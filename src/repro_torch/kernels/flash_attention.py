@@ -31,7 +31,11 @@ reference's kernel does.
 
 The tensor's device alone picks the implementation: a CUDA tensor launches
 the kernel (or the call raises), a CPU tensor takes the plain version
-:func:`repro_torch.kernels.ref.attention_ref`.
+:func:`repro_torch.kernels.ref.attention_ref`, and a meta tensor (the dry
+run, ``launch/dryrun.py``) takes the meta form: the card's checks, then an
+empty output of q's shape, counted in :data:`meta_launches` (the launches
+the card would make), never in :data:`launches`, which counts the kernel's
+real launches only.
 
 The kernel has no backward, as the reference's Pallas kernel has none (no
 ``custom_vjp``): its output, written through ``ctypes``, carries no
@@ -63,11 +67,15 @@ launches: Dict[str, int] = {"flash_attention": 0}
 # "bfloat16", head dim, causal), so a caller can tell which instances a
 # path ran, causal or not.
 instance_launches: Dict[Tuple[str, int, bool], int] = {}
+# Calls on the meta device: the launches the card would make on that
+# path, kept apart from the real ones.
+meta_launches: Dict[str, int] = {"flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
     launches["flash_attention"] = 0
     instance_launches.clear()
+    meta_launches["flash_attention"] = 0
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -113,7 +121,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device},"
                          f" v on {v.device}")
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if D not in HEAD_DIMS:
             raise ValueError(f"flash_attention: head dim {D} has no kernel "
                              f"instance on the card; built: {HEAD_DIMS}")
@@ -154,6 +162,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "Pallas kernel has none either), so its output would carry no "
             "gradient to q, k, v; train with attn_impl='chunked' or call "
             "it under torch.no_grad()")
+    if q.device.type == "meta":
+        meta_launches["flash_attention"] += 1
+        return torch.empty_like(q)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     code = _lib().fa_forward(
@@ -170,4 +181,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = ["flash_attention", "refuses_grad", "smem_bytes", "launches",
-           "instance_launches", "reset_launch_counts", "HEAD_DIMS"]
+           "instance_launches", "meta_launches", "reset_launch_counts",
+           "HEAD_DIMS"]

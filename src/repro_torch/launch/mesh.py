@@ -8,14 +8,21 @@ mesh never initialises a group. The mesh's device type follows the
 group's backend, NCCL ``cuda`` and gloo ``cpu``; a gloo group may still
 carry CUDA tensors (``models/parallel.py`` stages them through host
 memory), which is how two ranks share one card.
+
+:func:`standin_mesh` is no mesh at all: the axes of one and a rank's
+coordinates, for the dry run (``launch/dryrun.py``) and the tests, which
+size and count a rank of a mesh far larger than the cards at hand on the
+meta device (``models/parallel.py``, ``StandinMesh``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+from ..models.parallel import StandinMesh
 
 # The reference's production meshes, as {axis: size}.
 PRODUCTION_AXES = {False: {"data": 16, "model": 16},
@@ -55,6 +62,15 @@ def make_production_mesh(*, multi_pod: bool = False):
     return make_mesh(PRODUCTION_AXES[multi_pod])
 
 
+def standin_mesh(axes: Mapping[str, int],
+                 coords: Optional[Mapping[str, int]] = None) -> StandinMesh:
+    """A stand-in for the mesh ``axes`` ({name: size}, outermost first),
+    seen from the rank at ``coords`` (the first rank when None), e.g.
+    ``standin_mesh(production_axes(True), {"pod": 1, "data": 3,
+    "model": 7})``. Needs no process group."""
+    return StandinMesh(dict(axes), None if coords is None else dict(coords))
+
+
 def make_smoke_mesh():
     """Every rank of the world as a 1-D 'data' mesh (tests/examples)."""
     if not dist.is_initialized():
@@ -64,4 +80,5 @@ def make_smoke_mesh():
 
 
 __all__ = ["make_mesh", "make_production_mesh", "make_smoke_mesh",
-           "production_axes", "PRODUCTION_AXES"]
+           "production_axes", "PRODUCTION_AXES", "standin_mesh",
+           "StandinMesh"]

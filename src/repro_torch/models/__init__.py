@@ -4,7 +4,8 @@ trained through chunked attention.
   common.py      — weights with their logical axes, init, norms, RoPE,
                    linears (row-parallel, reduce dtype), constrain
   sharding.py    — the plan (logical axes → mesh axes), local blocks
-  parallel.py    — a rank's place on a mesh, counted collectives
+  parallel.py    — a rank's place on a mesh (or a stand-in mesh's),
+                   counted collectives
   attention.py   — GQA attention: naive, chunked and B4 impls, causal or
                    not, self or gated cross; decode on a KV cache
   mlp.py         — SwiGLU and mixture of experts (sort and einsum
@@ -16,7 +17,8 @@ trained through chunked attention.
                    cross-entropy loss
   decoding.py    — prefill / decode_step with each family's caches
   model.py       — ``Model`` (weights, ``RunConfig``, entry points, spec
-                   trees), ``build_model`` (on a mesh with a plan)
+                   trees, the dry run's abstract trees), ``build_model``
+                   (on a mesh with a plan)
   weights.py     — the reference's params tree and train state carried to
                    and from the port, whole or as a rank's blocks
 

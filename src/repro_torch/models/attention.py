@@ -230,7 +230,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denominator is 0 divides by 1, as in the reference. Each query block
     and each KV step is checkpointed (recomputed in the backward), so the
     (q_chunk, kv_chunk) scores are never kept for the backward.
+
+    On the meta device (the dry run) it is :func:`naive_attention`: the
+    blocks bound memory and cost only time there, both forms give the
+    same shapes and gradient edges, and neither issues a collective.
     """
+    if q.device.type == "meta":
+        return naive_attention(q, k, v, causal, row_offset)
     b, sq, kh, g, hd = q.shape
     sk = k.shape[1]
     q_chunk = min(q_chunk, sq)

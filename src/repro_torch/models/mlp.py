@@ -20,6 +20,13 @@ code, which the port follows, does not). The expert products are batched
 matrix products (``torch.matmul`` over the expert axis), as the reference
 computes them with einsum outside any Pallas kernel.
 
+On the meta device (the dry run) the dispatch runs as it is, for its
+shapes and the collectives around it, with two changes that leave both
+alone: ``torch.bincount``, which has no meta kernel, gives an empty tensor
+of its shape (:func:`_expert_counts`: a meta tensor holds no values to
+count), and the tokens go through in one chunk (the chunks bound memory,
+which meta tensors do not take, and issue no collective of their own).
+
 ``impl='ep_local'`` is :func:`moe_ep_local`, expert parallelism over a
 mesh with a dispatch local to each data shard and its own capacity
 (``max(4, int(T_loc·k·cf/E) + 1)``, not :func:`_capacity`); without a
@@ -136,6 +143,15 @@ def _capacity(t: int, cfg: ModelConfig, factor: float) -> int:
     return ((c + 31) // 32) * 32
 
 
+def _expert_counts(e_sorted: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(e_sorted, minlength=n)`` for ids in ``[0, n)``; on
+    the meta device, which has no bincount kernel, an empty int64 tensor
+    of the same shape ``(n,)``."""
+    if e_sorted.device.type == "meta":
+        return e_sorted.new_empty((n,), dtype=torch.int64)
+    return torch.bincount(e_sorted, minlength=n)
+
+
 def _experts_ffn(p, xin: torch.Tensor) -> torch.Tensor:
     """xin (E, C, d) → (E, C, d), every expert's SwiGLU on its batch
     (:func:`linear` on 3-D operands is a batched product). Where ``p``
@@ -201,7 +217,7 @@ def moe_sort(p, x: torch.Tensor, cfg: ModelConfig,
     tok_sorted = flat_tok[order]
     g_sorted = flat_g[order]
     # Rank within expert: global position − start offset of that expert.
-    counts = torch.bincount(e_sorted, minlength=e)
+    counts = _expert_counts(e_sorted, e)
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(t * k, device=x.device) - starts[e_sorted]
     valid = rank < c
@@ -268,9 +284,10 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
 def _chunked(fn, p, xt: torch.Tensor, cfg: ModelConfig,
              capacity_factor: float, token_chunk: int, first: int
              ) -> torch.Tensor:
-    """``fn`` over the tokens xt (T, d), ``token_chunk`` at a time."""
+    """``fn`` over the tokens xt (T, d), ``token_chunk`` at a time (on
+    the meta device all at once: module docstring)."""
     t = xt.shape[0]
-    if t <= token_chunk:
+    if t <= token_chunk or xt.device.type == "meta":
         return fn(p, xt, cfg, capacity_factor, first)
     pad = (-t) % token_chunk
     if pad:
@@ -338,7 +355,7 @@ def _ep_dispatch(w, x: torch.Tensor, cfg: ModelConfig,
     e_sorted = e_mine[order]
     tok_sorted = flat_tok[order]
     g_sorted = flat_g[order]
-    counts = torch.bincount(e_sorted, minlength=e_loc + 1)
+    counts = _expert_counts(e_sorted, e_loc + 1)
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(t * k, device=x.device) - starts[e_sorted]
     valid = (e_sorted < e_loc) & (rank < c)
@@ -386,7 +403,7 @@ def moe_ep_local(w, x: torch.Tensor, cfg: ModelConfig,
     x = copy_to(x, layout, ax)
     t_loc = x.shape[0]
     chunk = min(8192, t_loc)
-    if t_loc % chunk:
+    if t_loc % chunk or x.device.type == "meta":
         chunk = t_loc
     if chunk == t_loc:
         y = _ep_dispatch(w, x, cfg, capacity_factor, m, e_loc)

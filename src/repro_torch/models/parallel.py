@@ -31,6 +31,18 @@ axes arrives summed over them and cut to the rank's block.
 :meth:`Layout.whole` gathers through it. Blocks under
 ``torch.utils.checkpoint`` run their forward collectives again in the
 backward, in the same order on every rank; each is counted as issued.
+
+**A stand-in mesh** (:class:`StandinMesh`, ``launch/mesh.standin_mesh``)
+gives the axis names and sizes of a mesh and one rank's coordinates on it,
+and nothing else: no ranks, no process group. A :class:`Layout` on it
+makes no group, and each collective over two or more ranks returns an
+empty meta tensor of the shape a live rank would get, communicating
+nothing, and is counted in :data:`counts` exactly as a live rank counts it
+(the same tensor's bytes). That byte rule is the same for NCCL and gloo:
+a reduce-scatter counts the whole tensor the rank contributes on both, so
+a stand-in count stands for either backend. Only the dry run and the
+tests build a stand-in mesh, and its collectives refuse any tensor that
+is not on the meta device; a live ``DeviceMesh`` never takes this mode.
 """
 
 from __future__ import annotations
@@ -69,6 +81,45 @@ def _count(kind: str, x: torch.Tensor) -> None:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+class StandinMesh:
+    """The axes of a device mesh ({name: size}, outermost first) and one
+    rank's coordinates on it (0 on every axis when None), with the
+    attributes a :class:`Layout` reads from a ``DeviceMesh``. It has no
+    ranks and no process groups (module docstring)."""
+
+    def __init__(self, axes: Dict[str, int],
+                 coords: Optional[Dict[str, int]] = None):
+        self.mesh_dim_names = tuple(axes)
+        self.shape = tuple(int(n) for n in axes.values())
+        coords = {a: 0 for a in axes} if coords is None else dict(coords)
+        if set(coords) != set(axes) or any(
+                not 0 <= coords[a] < axes[a] for a in axes):
+            raise ValueError(f"coordinates {coords} are not a rank of the "
+                             f"mesh {dict(axes)}")
+        self.coords = coords
+        n = 1
+        for size in self.shape:
+            n *= size
+        self.mesh = torch.arange(n).reshape(self.shape)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def get_group(self, axis: str):
+        raise RuntimeError("a stand-in mesh has no process groups")
+
+
+# The group of two or more ranks of a stand-in mesh: none is made.
+_STANDIN_GROUP = object()
+
+
+def _check_meta(x: torch.Tensor, kind: str) -> None:
+    if x.device.type != "meta":
+        raise ValueError(f"{kind} on a stand-in mesh: it communicates "
+                         f"nothing, so it takes meta tensors only, not "
+                         f"{x.device}")
+
+
 class Layout:
     """The rank's coordinates on ``mesh`` (a ``DeviceMesh``) under
     ``plan``, the groups of every set of its axes, and the collectives.
@@ -82,6 +133,7 @@ class Layout:
         if not plan.active:
             raise ValueError("a Layout needs an active plan")
         self.plan, self.mesh = plan, mesh
+        self.standin = isinstance(mesh, StandinMesh)
         self.sizes = mesh_axis_sizes(mesh)
         names = tuple(mesh.mesh_dim_names)
         self.coords = mesh_coords(mesh)
@@ -92,6 +144,8 @@ class Layout:
             for axes in itertools.combinations(names, r):
                 if axes_span(axes, self.sizes) == 1:
                     self._groups[axes] = None
+                elif self.standin:
+                    self._groups[axes] = _STANDIN_GROUP
                 elif r == 1:
                     self._groups[axes] = mesh.get_group(axes[0])
                 else:
@@ -162,6 +216,9 @@ class Layout:
         g = self._group(axes)
         if g is None:
             return x
+        if g is _STANDIN_GROUP:
+            _check_meta(x, "all_reduce")
+            return torch.empty_like(x)
         staged = _staged(x, g)
         dist.all_reduce(staged, op=_OPS[op], group=g)
         return staged.to(x.device)
@@ -175,6 +232,11 @@ class Layout:
         g = self._group(axes)
         if g is None:
             return x
+        if g is _STANDIN_GROUP:
+            _check_meta(x, "all_gather")
+            shape = list(x.shape)
+            shape[dim] *= self.span(axes)
+            return x.new_empty(shape)
         staged = _staged(x, g)
         parts = [torch.empty_like(staged) for _ in range(self.span(axes))]
         dist.all_gather(parts, staged, group=g)
@@ -195,6 +257,11 @@ class Layout:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
                              f"over {tuple(axes)} ({n} ranks)")
         b = x.shape[dim] // n
+        if g is _STANDIN_GROUP:
+            _check_meta(x, "reduce_scatter")
+            shape = list(x.shape)
+            shape[dim] = b
+            return x.new_empty(shape)
         if dist.get_backend(g) == "gloo":
             staged = _staged(x, g)
             dist.all_reduce(staged, group=g)
@@ -277,5 +344,5 @@ def reduce_from(x: torch.Tensor, layout: Layout,
     return _ReduceFrom.apply(x, layout, tuple(axes))
 
 
-__all__ = ["Layout", "counts", "reset_counts", "snapshot", "copy_to",
+__all__ = ["Layout", "StandinMesh", "counts", "reset_counts", "snapshot", "copy_to",
            "reduce_from", "gather_from", "KINDS"]

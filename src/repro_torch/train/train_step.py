@@ -25,9 +25,12 @@ clipping and AdamW then run on each rank's blocks
 (``optimizer.opt_update`` with the leaves' axes), compression with one
 scale a whole leaf. With ``accum_steps > 1`` each microbatch must divide
 over the batch's axes; the step raises where it does not (the dry run,
-ROADMAP 18e, halves ``accum`` as the reference's does).
+``launch/dryrun.py``, halves ``accum`` as the reference's does).
 
-``abstract_train_state`` belongs to the dry run, ROADMAP 18e.
+:func:`abstract_train_state` is the dry run's state: the params, the AdamW
+moments in ``OptConfig.state_dtype`` and, with compression, the f32 error
+tensors, as meta tensors (global shapes, their specs, and a rank's blocks
+on a mesh), allocating nothing.
 """
 
 from __future__ import annotations
@@ -37,10 +40,11 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models.model import Model
+from ..models.model import AbstractTree, Model
 from .compression import compress_decompress
-from .optimizer import (OptConfig, OptState, _DTYPES, opt_init, opt_update,
-                        sharded_axes)
+from .optimizer import (OptConfig, OptState, _DTYPES, opt_init,
+                        opt_state_specs, opt_update, sharded_axes,
+                        state_dtype)
 
 
 class TrainState(NamedTuple):
@@ -68,6 +72,45 @@ def init_train_state(model: Model, oc: OptConfig,
     err = ({n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for n, p in params.items()} if sc.compress_cross_pod else None)
     return TrainState(params=params, opt=opt_init(params, oc), err=err)
+
+
+def abstract_train_state(model: Model, oc: OptConfig,
+                         sc: Optional[StepConfig] = None,
+                         mesh=None) -> AbstractTree:
+    """The :class:`TrainState` of ``model`` as an ``AbstractTree`` of
+    ``TrainState`` s: the params (``Model.abstract_params``), each moment
+    in ``oc.state_dtype`` with its parameter's spec, step 0, and with
+    ``sc.compress_cross_pod`` the f32 error tensors; with ``mesh`` the
+    rank's blocks too."""
+    sc = sc or StepConfig()
+    params = model.abstract_params(mesh=mesh)
+    sdt = state_dtype(oc)
+
+    def like(tree, dt):
+        if tree is None:
+            return None
+        return {n: torch.empty(t.shape, dtype=dt, device="meta")
+                for n, t in tree.items()}
+
+    def state(tree):
+        if tree is None:
+            return None
+        return TrainState(
+            params=tree, opt=OptState(mu=like(tree, sdt), nu=like(tree, sdt),
+                                      step=0),
+            err=like(tree, torch.float32) if sc.compress_cross_pod else None)
+
+    specs = TrainState(params=params.specs, opt=opt_state_specs(params.specs),
+                       err=(dict(params.specs) if sc.compress_cross_pod
+                            else None))
+    return AbstractTree(state(params.whole), specs, state(params.local))
+
+
+def state_bytes(state: TrainState) -> int:
+    """Bytes of a state's params, moments and error tensors."""
+    parts = (state.params, state.opt.mu, state.opt.nu, state.err or {})
+    return sum(t.numel() * t.element_size()
+               for part in parts for t in part.values())
 
 
 def _value_and_grad(model: Model, params: Dict[str, torch.Tensor], batch
@@ -165,4 +208,5 @@ def make_train_step(model: Model, oc: OptConfig,
     return train_step
 
 
-__all__ = ["TrainState", "StepConfig", "init_train_state", "make_train_step"]
+__all__ = ["TrainState", "StepConfig", "init_train_state", "make_train_step",
+           "abstract_train_state", "state_bytes"]

@@ -63,7 +63,7 @@ import torch.distributed as dist
 import torch.multiprocessing as tmp
 
 from repro_torch.configs import get_smoke
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, standin_mesh
 from repro_torch.models import build_model, common, parallel, weights
 from repro_torch.models.sharding import local_block, resolve_plan
 from repro_torch.models.transformer import RunConfig
@@ -534,33 +534,17 @@ def test_sharded_family_checkpoint_equals_unsharded_save(spawned, arch, mesh,
 # -- on the meta device, in this process --------------------------------------
 
 
-class OneAxisMesh:
-    """A ``DeviceMesh`` stand-in of one axis for builds on the meta device:
-    its name and size, this rank's coordinate and a placeholder group (a
-    meta build issues no collective)."""
-
-    def __init__(self, axis: str, size: int, coord: int):
-        self.mesh_dim_names, self.shape = (axis,), (size,)
-        self.mesh = torch.arange(size)
-        self._coord = coord
-
-    def get_local_rank(self, axis):
-        return self._coord
-
-    def get_group(self, axis):
-        return object()
-
-
 def check_meta_build_on_mesh(arch, axis, coord=1, size=2):
-    """Build ``arch``'s smoke config on the meta device on a one-axis mesh
-    ``{axis: size}`` at ``coord``: its layout holds the plan and the
+    """Build ``arch``'s smoke config on the meta device on a one-axis
+    stand-in mesh ``{axis: size}`` at ``coord`` (``launch.mesh.
+    standin_mesh``: no process group): its layout holds the plan and the
     coordinates, and every parameter the block of its whole leaf that
     ``local_block`` gives its ``param_specs`` entry. Returns the model."""
     cfg = get_smoke(arch)
     axes = {axis: size}
     plan = resolve_plan(cfg, None, axes)
     model = build_model(cfg, device="meta", plan=plan,
-                        mesh=OneAxisMesh(axis, size, coord))
+                        mesh=standin_mesh(axes, {axis: coord}))
     assert model.layout is not None and model.plan is plan
     assert model.layout.coords == {axis: coord}
     whole = dict(build_model(cfg, device="meta").named_parameters())
