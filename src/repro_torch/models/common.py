@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import spans
 from .parallel import copy_to, reduce_from
 
 # The layout whose blocks weight() keeps while a sharded model is drawn.
@@ -166,8 +167,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (B, S, H, hd); positions (B, S) or (S,)."""
     half = x.shape[-1] // 2
-    freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta),
-                            dtype=torch.float32, device=x.device)
+    with spans.span("sync.rope"):
+        freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta),
+                                dtype=torch.float32, device=x.device)
     if positions.dim() == 1:
         positions = positions[None, :]
     ang = positions[..., None].float() * freqs           # (B, S, half)

@@ -48,6 +48,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import spans
 from ..configs.base import ModelConfig, check_family
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
@@ -192,6 +193,15 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     in f32, caches padded with zeros to ``cache_len``). ``rc`` (default
     ``RunConfig()``) gives the MoE, RWKV and SSD fields; an encdec model
     reads ``audio_embeds``, a VLM ``image_embeds``."""
+    with spans.span("prefill"):
+        return _prefill(params, cfg, tokens, cache_len, cache_dtype, rc,
+                        audio_embeds, image_embeds)
+
+
+def _prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+             cache_len: Optional[int], cache_dtype: torch.dtype,
+             rc: Optional[RunConfig], audio_embeds: Optional[torch.Tensor],
+             image_embeds: Optional[torch.Tensor]):
     check_stub_inputs(cfg, audio_embeds, image_embeds)
     rc = rc or RunConfig()
     layout = params.layout
@@ -208,31 +218,39 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         """x_ plus p's causal self-attention through B4; its keys and
         values written into the first s positions of the caches (those
         of the rank's block of positions on a mesh)."""
-        out = attention(p.attn, cfg, rms_norm(x_, p.ln1, cfg.norm_eps),
-                        positions, impl="pallas", return_kv=True,
-                        layout=layout)
-        s_loc = k_cache.shape[1]
-        lo = layout.index(seq) * s_loc if seq else 0
-        n = max(0, min(s - lo, s_loc))
-        k_cache[:, :n] = out.k[:, lo:lo + n].to(cache_dtype)
-        v_cache[:, :n] = out.v[:, lo:lo + n].to(cache_dtype)
-        return x_ + out.out
+        with spans.span("attn"):
+            out = attention(p.attn, cfg, rms_norm(x_, p.ln1, cfg.norm_eps),
+                            positions, impl="pallas", return_kv=True,
+                            layout=layout)
+            s_loc = k_cache.shape[1]
+            lo = layout.index(seq) * s_loc if seq else 0
+            n = max(0, min(s - lo, s_loc))
+            k_cache[:, :n] = out.k[:, lo:lo + n].to(cache_dtype)
+            v_cache[:, :n] = out.v[:, lo:lo + n].to(cache_dtype)
+            return x_ + out.out
 
     def cross_attn(p, ln, x_, src, k_cache, v_cache):
         """x_ plus the gated cross-attention p over src through B4; its
         keys and values (the rank's kv heads) written into the cross
         caches."""
-        out = attention(p, cfg, rms_norm(x_, ln, cfg.norm_eps), None,
-                        kv_x=src, causal=False, impl="pallas",
-                        return_kv=True, layout=layout)
-        k_cache.copy_(out.k.to(cache_dtype))
-        v_cache.copy_(out.v.to(cache_dtype))
-        return x_ + out.out
+        with spans.span("attn"):
+            out = attention(p, cfg, rms_norm(x_, ln, cfg.norm_eps), None,
+                            kv_x=src, causal=False, impl="pallas",
+                            return_kv=True, layout=layout)
+            k_cache.copy_(out.k.to(cache_dtype))
+            v_cache.copy_(out.v.to(cache_dtype))
+            return x_ + out.out
+
+    def swiglu(p, x_):
+        with spans.span("ffn"):
+            return _swiglu(p, cfg, x_, layout)
 
     if cfg.family in ("dense", "moe"):
         for layer, p in enumerate(params.blocks):
             x = self_attn(p, x, c["k"][layer], c["v"][layer])
-            x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps), layout)
+            with spans.span("ffn"):
+                x = x + ffn(p, cfg, rc, rms_norm(x, p.ln2, cfg.norm_eps),
+                            layout)
             x = constrain(x, layout, "batch", None, None)
     elif cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
@@ -258,24 +276,26 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                 c["conv"][g, j] = mc.conv.to(cache_dtype)
                 c["ssm"][g, j] = mc.ssm
             x = self_attn(shared, x, c["ak"][g], c["av"][g])
-            x = _swiglu(shared, cfg, x, layout)
+            x = swiglu(shared, x)
     elif cfg.family == "vlm":
         img = image_embeds.to(x.dtype)
         for g, (group, pc) in enumerate(zip(params.self_groups,
                                             params.cross_layers)):
             for j, p in enumerate(group):
                 x = self_attn(p, x, c["k"][g, j], c["v"][g, j])
-                x = _swiglu(p, cfg, x, layout)
+                x = swiglu(p, x)
             x = cross_attn(pc.xattn, pc.ln1, x, img, c["xk"][g], c["xv"][g])
-            x = _swiglu(pc, cfg, x, layout)
+            x = swiglu(pc, x)
     else:                                               # encdec
         enc = encode(params, cfg, rc, audio_embeds, impl="pallas")
         for layer, p in enumerate(params.blocks):
             x = self_attn(p, x, c["k"][layer], c["v"][layer])
             x = cross_attn(p.xattn, p.ln_x, x, enc, c["xk"][layer],
                            c["xv"][layer])
-            x = _swiglu(p, cfg, x, layout)
-    return _logits(params, cfg, x), c
+            x = swiglu(p, x)
+    with spans.span("logits"):
+        logits = _logits(params, cfg, x)
+    return logits, c
 
 
 @torch.no_grad()

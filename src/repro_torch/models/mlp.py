@@ -59,6 +59,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..configs.base import ModelConfig
 from .common import dense_init, linear, linear_rows, reduce_dtype, weight
 from .parallel import copy_to, gather_from, reduce_from
@@ -207,42 +208,53 @@ def moe_sort(p, x: torch.Tensor, cfg: ModelConfig,
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
     c = _capacity(t, cfg, capacity_factor)
-    gates, idx = _router(p, x, cfg)                       # (T, k)
+    with spans.span("moe.route"):
+        gates, idx = _router(p, x, cfg)                   # (T, k)
+        flat_e = idx.reshape(-1)                          # (T·k,)
+        flat_g = gates.reshape(-1)
+        flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+        order = torch.argsort(flat_e, stable=True)
+        e_sorted = flat_e[order]
+        tok_sorted = flat_tok[order]
+        g_sorted = flat_g[order]
 
-    flat_e = idx.reshape(-1)                              # (T·k,)
-    flat_g = gates.reshape(-1)
-    flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    order = torch.argsort(flat_e, stable=True)
-    e_sorted = flat_e[order]
-    tok_sorted = flat_tok[order]
-    g_sorted = flat_g[order]
-    # Rank within expert: global position − start offset of that expert.
-    counts = _expert_counts(e_sorted, e)
-    starts = torch.cumsum(counts, dim=0) - counts
-    rank = torch.arange(t * k, device=x.device) - starts[e_sorted]
-    valid = rank < c
-    slot = torch.where(valid, rank, 0)
-    n_e = p.wi.shape[0]
-    row = e_sorted - first
-    valid = valid & (row >= 0) & (row < n_e)
-    row = torch.where(valid, row, 0)
+    with spans.span("moe.dispatch"):
+        # Rank within expert: global position − start offset of that
+        # expert.
+        with spans.span("sync.bincount", syncs=2):    # its min and max
+            counts = _expert_counts(e_sorted, e)
+        starts = torch.cumsum(counts, dim=0) - counts
+        rank = torch.arange(t * k, device=x.device) - starts[e_sorted]
+        valid = rank < c
+        slot = torch.where(valid, rank, 0)
+        n_e = p.wi.shape[0]
+        row = e_sorted - first
+        valid = valid & (row >= 0) & (row < n_e)
+        row = torch.where(valid, row, 0)
+        if spans.recording():
+            spans.count("moe.slots", n_e * c)
+            spans.count("moe.slots_filled", valid.sum())
+            spans.count("moe.assignments", t * k)
+            spans.count("moe.dropped", (rank >= c).sum())
 
-    # Tokens into expert batches. A dropped assignment adds a zero row to
-    # slot 0 of its expert, so the scatter must accumulate: an assignment
-    # would overwrite the kept token that owns the slot.
-    xin = torch.zeros((n_e, c, d), dtype=x.dtype, device=x.device)
-    xin = xin.index_put((row, slot),
-                        torch.where(valid[:, None], x[tok_sorted],
-                                    torch.zeros((), dtype=x.dtype,
-                                                device=x.device)),
-                        accumulate=True)
-    out = _experts_ffn(p, xin)                            # (E, C, d)
+        # Tokens into expert batches. A dropped assignment adds a zero row
+        # to slot 0 of its expert, so the scatter must accumulate: an
+        # assignment would overwrite the kept token that owns the slot.
+        xin = torch.zeros((n_e, c, d), dtype=x.dtype, device=x.device)
+        xin = xin.index_put((row, slot),
+                            torch.where(valid[:, None], x[tok_sorted],
+                                        torch.zeros((), dtype=x.dtype,
+                                                    device=x.device)),
+                            accumulate=True)
+    with spans.span("moe.experts"):
+        out = _experts_ffn(p, xin)                        # (E, C, d)
 
     # Combine: each kept assignment's result, times its gate, added to
     # its token; a dropped one's gate is 0.
-    vals = out[row, slot] * (g_sorted * valid)[:, None].to(out.dtype)
-    return torch.zeros((t, d), dtype=out.dtype,
-                       device=x.device).index_add(0, tok_sorted, vals)
+    with spans.span("moe.combine"):
+        vals = out[row, slot] * (g_sorted * valid)[:, None].to(out.dtype)
+        return torch.zeros((t, d), dtype=out.dtype,
+                           device=x.device).index_add(0, tok_sorted, vals)
 
 
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",

@@ -25,6 +25,7 @@ from typing import Deque, List, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from .engine import EngineStats
 
 
@@ -102,18 +103,23 @@ class ContinuousBatcher:
 
     def _greedy(self, logits) -> int:
         """Argmax over the real vocabulary (padded columns dropped)."""
-        return int(torch.argmax(logits[0, : self.model.cfg.vocab_size]))
+        top = torch.argmax(logits[0, : self.model.cfg.vocab_size])
+        with spans.span("sync.greedy"):
+            return int(top)
 
     def _admit(self):
         for i in range(self.max_slots):
             if self.slots[i] is None and self.queue:
                 req = self.queue.popleft()
-                tokens = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
-                                         device=self.model.device)
-                logits, caches = self.model.prefill(tokens,
-                                                    cache_len=self.cache_len)
+                with spans.request(req.uid), spans.span("serve.prefill"):
+                    with spans.span("sync.tokens"):
+                        tokens = torch.as_tensor(
+                            req.prompt[None, :], dtype=torch.long,
+                            device=self.model.device)
+                    logits, caches = self.model.prefill(
+                        tokens, cache_len=self.cache_len)
+                    tok = self._greedy(logits)
                 self.stats.prefills += 1
-                tok = self._greedy(logits)
                 req.out_tokens.append(tok)
                 self.slots[i] = req
                 self.slot_caches[i] = caches

@@ -40,6 +40,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..models.model import AbstractTree, Model
 from .compression import compress_decompress
 from .optimizer import (OptConfig, OptState, _DTYPES, opt_init,
@@ -116,9 +117,11 @@ def state_bytes(state: TrainState) -> int:
 def _value_and_grad(model: Model, params: Dict[str, torch.Tensor], batch
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     names = list(params)
-    loss = model.loss(batch)
-    grads = torch.autograd.grad(loss, [params[n] for n in names],
-                                allow_unused=True)
+    with spans.span("train.forward"):
+        loss = model.loss(batch)
+    with spans.span("train.backward"):
+        grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                    allow_unused=True)
     return loss.detach(), {
         n: torch.zeros_like(params[n]) if g is None else g
         for n, g in zip(names, grads)}
@@ -169,6 +172,10 @@ def make_train_step(model: Model, oc: OptConfig,
                      for n, ax in axes.items()}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with spans.span("train.step"):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
         b = batch["tokens"].shape[0]
         if (b // accum) % span:
@@ -200,8 +207,9 @@ def make_train_step(model: Model, oc: OptConfig,
         if sc.compress_cross_pod:
             grads, err = compress_decompress(grads, err, layout, axes)
 
-        params, opt, metrics = opt_update(grads, state.opt, params, oc,
-                                          layout, axes)
+        with spans.span("train.optimizer"):
+            params, opt, metrics = opt_update(grads, state.opt, params, oc,
+                                              layout, axes)
         metrics["loss"] = loss
         return TrainState(params=params, opt=opt, err=err), metrics
 
