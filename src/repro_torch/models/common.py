@@ -163,13 +163,32 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, half) * 2.0 / head_dim))
 
 
+# Rope's inverse frequencies, cast to f32, on each device they were asked
+# for: (head_dim, theta, device) → tensor. A copy from the host on every
+# call would drain the stream (a pageable copy waits for the queued work).
+_ROPE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def rope_table(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` as f32 on ``device``, built once per
+    ``(head_dim, theta, device)`` (each build counted as
+    ``rope.table_builds``) and read from the cache after that."""
+    key = (head_dim, theta, device)
+    table = _ROPE_TABLES.get(key)
+    if table is None:
+        spans.count("rope.table_builds")
+        table = torch.as_tensor(rope_frequencies(head_dim, theta),
+                                dtype=torch.float32, device=device)
+        _ROPE_TABLES[key] = table
+    return table
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (B, S, H, hd); positions (B, S) or (S,)."""
     half = x.shape[-1] // 2
-    with spans.span("sync.rope"):
-        freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta),
-                                dtype=torch.float32, device=x.device)
+    freqs = rope_table(x.shape[-1], theta, x.device)
     if positions.dim() == 1:
         positions = positions[None, :]
     ang = positions[..., None].float() * freqs           # (B, S, half)
@@ -244,5 +263,6 @@ def constrain(x: torch.Tensor, layout, *logical) -> torch.Tensor:
 __all__ = ["weight", "param_axes", "attach_axes", "param_specs",
            "drawing_blocks", "dense_init", "rms_norm", "rms_norm_split",
            "head_block", "replicated_part", "head_rms_norm",
-           "rope_frequencies", "apply_rope", "set_matmul_reduce_dtype",
-           "reduce_dtype", "linear", "linear_rows", "constrain"]
+           "rope_frequencies", "rope_table", "apply_rope",
+           "set_matmul_reduce_dtype", "reduce_dtype", "linear", "linear_rows",
+           "constrain"]

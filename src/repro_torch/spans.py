@@ -13,7 +13,7 @@ no CUDA event is created, no kernel launched, nothing synced.
     spans.disable()
     for r in spans.records():
         print(r.name, r.parent, r.request, r.host_ns, r.device_ns)
-    print(spans.counters())            # {"host_syncs": 82, ...}
+    print(spans.counters())            # {"host_syncs": 2, ...}
     spans.clear()
 
 Each :class:`Record` holds its name, the index of the span it opened in
@@ -50,7 +50,6 @@ The spans, by name:
   (``torch.autograd.grad``), ``train.optimizer`` (clipping and AdamW);
 * ``sync.<what>``: a wait of the host for the device: ``sync.tokens``
   (a prompt's upload), ``sync.greedy`` (the picked token read back),
-  ``sync.rope`` (rope's frequency table copied to the card),
   ``sync.bincount`` (the MoE dispatch's expert counts).
 
 The counters: ``host_syncs`` (the waits of every ``sync.*`` span: one
@@ -58,8 +57,10 @@ each, but two for ``sync.bincount``, since ``torch.bincount`` on the card
 reads back its input's least and greatest values), ``moe.slots``
 (experts × capacity of every dispatch), ``moe.slots_filled`` (kept
 assignments), ``moe.assignments`` (tokens × k), ``moe.dropped``
-(assignments past their expert's capacity), ``spans.dropped`` (spans
-not kept past :data:`CAP`). :func:`count` takes a Python int or a 0-d
+(assignments past their expert's capacity), ``rope.table_builds``
+(rope's frequency table built on a device: one per new head dim, theta
+and device, none once each is cached), ``spans.dropped`` (spans not kept
+past :data:`CAP`). :func:`count` takes a Python int or a 0-d
 tensor; tensors are summed on their device and read when
 :func:`counters` is called.
 """

@@ -178,7 +178,7 @@ def test_counter_readers_on_a_recorded_smoke_prefill():
                               max_new_tokens=1))
     spans.disable()
     syncs = main.reader("host_syncs_per_prefill.prefill")(PREFILL)
-    assert syncs == 4 * cfg.num_layers + 2
+    assert syncs == 2 * cfg.num_layers + 2    # bincount's two a layer
     fill = main.reader("moe_slot_fill_pct.prefill")(PREFILL)
     c = spans.counters()
     assert 0 < fill == 100.0 * c["moe.slots_filled"] / c["moe.slots"] <= 100

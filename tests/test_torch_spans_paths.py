@@ -5,12 +5,13 @@ smoke sizes.
   ``ContinuousBatcher.admit``: one ``serve.prefill`` under the request's
   id holding one ``prefill``, one ``attn`` and one ``ffn`` a layer and
   one ``logits``; the syncs named where they are made (the prompt's
-  upload, rope's two tables a layer, the MoE counts a layer, the greedy
-  pick), ``host_syncs`` their waits (two for the MoE counts); the MoE
-  counters equal what the router's own top-k gives at the dispatch's
-  capacity;
+  upload, the MoE counts a layer, the greedy pick; rope's table is kept
+  on the device, so attention holds none), ``host_syncs`` their waits
+  (two for the MoE counts); the MoE counters equal what the router's own
+  top-k gives at the dispatch's capacity;
 * a training step: ``train.step`` holding ``train.forward``,
-  ``train.backward`` and ``train.optimizer``;
+  ``train.backward`` and ``train.optimizer``, with no sync and, once
+  rope's table is cached, no counter;
 * recording off: the same paths create no CUDA event and synchronise
   nothing even where CUDA has started (faked), and recording on runs the
   same operators as off (the MoE counters' three reductions a layer
@@ -27,7 +28,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import spans
 from repro_torch.configs import get_smoke
 from repro_torch.launch.train import run_config
-from repro_torch.models import build_model, mlp
+from repro_torch.models import build_model, common, mlp
 from repro_torch.serve.batching import ContinuousBatcher, Request
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import (StepConfig, init_train_state,
@@ -88,7 +89,8 @@ def _names_under(recs, parent):
 
 
 @pytest.mark.parametrize("name", ["granite-3-2b", "olmoe-1b-7b"])
-def test_prefill_spans_and_syncs(name):
+def test_prefill_spans_and_syncs(name, monkeypatch):
+    monkeypatch.setattr(common, "_ROPE_TABLES", {})
     cfg, admit = _prefill(name)
     moe = bool(cfg.num_experts)
     spans.enable()
@@ -103,7 +105,7 @@ def test_prefill_spans_and_syncs(name):
         "sync.tokens": 1, "prefill": 1, "sync.greedy": 1}
     assert _names_under(recs, "prefill") == {"attn": layers,
                                              "ffn": layers, "logits": 1}
-    assert _names_under(recs, "attn") == {"sync.rope": 2 * layers}
+    assert _names_under(recs, "attn") == {}
     if moe:
         assert _names_under(recs, "ffn") == {
             "moe.route": layers, "moe.dispatch": layers,
@@ -112,9 +114,11 @@ def test_prefill_spans_and_syncs(name):
                                                       layers}
     else:
         assert _names_under(recs, "ffn") == {}
-    named = (3 if moe else 2) * layers + 2
+    named = (layers if moe else 0) + 2
     assert sum(r.name.startswith("sync.") for r in recs) == named
-    assert spans.counters()["host_syncs"] == named + (layers if moe else 0)
+    got = spans.counters()
+    assert got["host_syncs"] == named + (layers if moe else 0)
+    assert got["rope.table_builds"] == 1      # one head dim, theta, device
 
 
 def test_moe_counters_match_the_routers_own_choice(monkeypatch):
@@ -145,7 +149,8 @@ def test_moe_counters_match_the_routers_own_choice(monkeypatch):
 
 
 def test_train_step_spans():
-    cfg, run = _train_step()
+    _, run = _train_step()
+    run()                                 # rope's table built and cached
     spans.enable()
     run()
     spans.disable()
@@ -153,9 +158,8 @@ def test_train_step_spans():
     assert recs[0].name == "train.step" and recs[0].parent is None
     assert _names_under(recs, "train.step") == {
         "train.forward": 1, "train.backward": 1, "train.optimizer": 1}
-    assert _names_under(recs, "train.forward") == {
-        "sync.rope": 2 * cfg.num_layers}
-    assert spans.counters() == {"host_syncs": 2 * cfg.num_layers}
+    assert _names_under(recs, "train.forward") == {}
+    assert spans.counters() == {}
 
 
 @pytest.mark.parametrize("path", ["granite-3-2b", "olmoe-1b-7b", "train"])
