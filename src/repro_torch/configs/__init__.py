@@ -5,12 +5,19 @@ granite-3-2b, stablelm-12b (dense), olmoe-1b-7b, grok-1-314b (moe),
 rwkv6-1.6b (ssm), zamba2-2.7b (hybrid), whisper-base (encdec) and
 llama-3.2-vision-90b (vlm). :data:`SHAPES` is the reference's grid of
 four shapes, and :func:`all_cells` its 40 (arch × shape) cells.
+
+The port also runs architectures the reference does not have
+(:data:`PORT_ARCHS`: granite-4.0-h-small, of the ``hybrid_moe`` family).
+``get_config`` and ``get_smoke`` build them too; they are kept out of
+:data:`ARCH_NAMES` and :func:`all_cells`, which stay the reference's.
+:data:`ALL_ARCH_NAMES` lists both.
 """
 
 from __future__ import annotations
 
 from . import (
     granite_3_2b,
+    granite_4_0_h_small,
     grok_1_314b,
     llama32_vision_90b,
     olmoe_1b_7b,
@@ -36,19 +43,27 @@ _MODULES = {
     "llama-3.2-vision-90b": llama32_vision_90b,
 }
 
+# Architectures of the port alone: the reference has no such family.
+_PORT_MODULES = {
+    "granite-4.0-h-small": granite_4_0_h_small,
+}
+
 # The reference's architectures not ported yet, with what they wait for.
 NOT_PORTED: dict = {}
 
 ARCH_NAMES = tuple(_MODULES)
+PORT_ARCHS = tuple(_PORT_MODULES)
+ALL_ARCH_NAMES = ARCH_NAMES + PORT_ARCHS
 
 
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet: ROADMAP {NOT_PORTED[name]}")
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
-    return _MODULES[name]
+    module = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; available: {ALL_ARCH_NAMES}")
+    return module
 
 
 def get_config(name: str) -> ModelConfig:
@@ -71,6 +86,6 @@ def all_cells():
     return cells
 
 
-__all__ = ["ARCH_NAMES", "NOT_PORTED", "SHAPES", "ModelConfig",
-           "ShapeConfig", "get_config", "get_smoke", "supports_shape",
-           "all_cells"]
+__all__ = ["ARCH_NAMES", "PORT_ARCHS", "ALL_ARCH_NAMES", "NOT_PORTED",
+           "SHAPES", "ModelConfig", "ShapeConfig", "get_config", "get_smoke",
+           "supports_shape", "all_cells"]

@@ -6,6 +6,15 @@ mixture-of-experts, SSM (rwkv6), hybrid (zamba2), encoder-decoder
 fields, defaults and analytic :meth:`ModelConfig.param_count`, and the
 reference's shape grid (``ShapeConfig``, ``SHAPES``, ``supports_shape``),
 which ``models/sharding.py`` ``resolve_plan`` reads.
+
+Beside them, a family the reference does not have: ``hybrid_moe``
+(granite-4.0-h-small, ``model_type`` ``granitemoehybrid``), configured by
+:class:`HybridMoEConfig`, whose layers each pick their mixer by
+``layer_types`` (Mamba2 or attention) and each end in a mixture of
+experts beside a shared expert. Its fields are :class:`ModelConfig`'s
+plus those the reference lacks; a plain :class:`ModelConfig` reads each of
+them as the value that adds no operation, so the reference's families
+compute what they computed before, and their fields stay the reference's.
 """
 
 from __future__ import annotations
@@ -13,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "hybrid_moe")
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -70,6 +79,19 @@ class ModelConfig:
 
     vocab_round: int = 256            # pad vocab so TP divides it
 
+    # HybridMoEConfig's fields, as every other configuration reads them
+    # (class attributes, not fields: the reference has no such fields).
+    layer_types = ()
+    shared_expert_d_ff = 0
+    nope = False
+    ssm_conv_xbc = False
+    embedding_multiplier = 1.0
+    attention_multiplier = 0.0
+    residual_multiplier = 1.0
+    logits_scaling = 1.0
+    experts_held = 0
+    experts_first = 0
+
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -77,6 +99,11 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, self.vocab_round)
+
+    @property
+    def local_experts(self) -> int:
+        """The experts whose weights this device holds."""
+        return self.experts_held or self.num_experts
 
     @property
     def attention_free(self) -> bool:
@@ -107,6 +134,10 @@ class ModelConfig:
           attention, norms and SwiGLU have their shapes), then
           ``L / cross_attn_every`` attention blocks, norms and gates more:
           each cross layer's attention and norms twice.
+
+        hybrid_moe, which the reference lacks, counts every weight the
+        model holds but ``ln_f``: the held experts (:attr:`local_experts`)
+        and the router over all of them.
 
         The card's memory figures come from the bytes of the tensors.
         """
@@ -146,12 +177,62 @@ class ModelConfig:
                 d_in * d) + heads + d_in * 4 + 2 * d
             shared_attn = attn_params() + dense_mlp(f) + 2 * d
             blocks = self.num_layers * per_mamba + shared_attn  # shared
+        elif self.family == "hybrid_moe":
+            d_in = self.ssm_expand * d
+            heads = d_in // self.ssm_head_dim
+            conv = d_in + 2 * self.ssm_state if self.ssm_conv_xbc else d_in
+            mamba = d * (2 * d_in + 2 * self.ssm_state + heads) + (
+                d_in * d) + 3 * heads + d_in + 4 * conv + (
+                conv if self.ssm_conv_xbc else 0)
+            ff = self.moe_d_ff or f
+            per_ffn = d * self.num_experts + self.local_experts * 3 * d * ff \
+                + 3 * d * self.shared_expert_d_ff + 2 * d
+            blocks = sum((mamba if t == "mamba" else attn_params()) + per_ffn
+                         for t in self.layer_types)
         else:                                  # dense / vlm
             blocks = self.num_layers * (attn_params() + dense_mlp(f) + 2 * d)
             if self.cross_attn_every:
                 n_cross = self.num_layers // self.cross_attn_every
                 blocks += n_cross * (attn_params() + 2 * d + 1)
         return total + blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A ``hybrid_moe`` model (granite-4.0-h-small): each layer's mixer by
+    ``layer_types`` ("mamba" or "attention"), then a mixture of experts
+    beside a shared SwiGLU of ``shared_expert_d_ff``; attention without
+    positions (``nope``); the Mamba2 conv over ``[x | B | C]`` with a bias
+    (``ssm_conv_xbc``); the published scalars (the embedding times
+    ``embedding_multiplier``, the attention scale ``attention_multiplier``
+    in place of ``1/sqrt(head_dim)`` where nonzero, each sublayer's output
+    times ``residual_multiplier`` into the residual, the logits divided by
+    ``logits_scaling``); and the experts this device holds,
+    ``[experts_first, experts_first + experts_held)`` of the
+    ``num_experts`` the router spans (0 held: all of them)."""
+    layer_types: Tuple[str, ...] = ()
+    shared_expert_d_ff: int = 0
+    nope: bool = False
+    ssm_conv_xbc: bool = False
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    experts_held: int = 0
+    experts_first: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.layer_types) != self.num_layers or \
+                set(self.layer_types) - {"mamba", "attention"}:
+            raise ValueError(f"{self.name}: layer_types must give "
+                             f"{self.num_layers} of 'mamba' and 'attention'")
+        held = self.local_experts
+        if self.experts_first < 0 or self.experts_first + held > \
+                self.num_experts:
+            raise ValueError(f"{self.name}: experts [{self.experts_first}, "
+                             f"{self.experts_first + held}) are not among "
+                             f"{self.num_experts}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,5 +259,5 @@ def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
     return True, ""
 
 
-__all__ = ["ModelConfig", "check_family", "FAMILIES", "ShapeConfig",
-           "SHAPES", "supports_shape"]
+__all__ = ["ModelConfig", "HybridMoEConfig", "check_family", "FAMILIES",
+           "ShapeConfig", "SHAPES", "supports_shape"]

@@ -10,7 +10,9 @@ The port of ``repro/launch/serve.py``: the same request distribution from
 full-width model is drawn on the card, not the host), and the reference
 launcher's run settings where the family reads them (:func:`run_config`:
 the exact RWKV scan for ssm, SSD chunks of 16 for hybrid). ``--arch`` is
-any registered architecture (``repro_torch.configs.ARCH_NAMES``), but
+any registered architecture (``repro_torch.configs.ALL_ARCH_NAMES``: the
+reference's and granite-4.0-h-small, which runs at ``--smoke`` size here,
+its 129 GB of f32 weights being more than a card holds), but
 whisper-base and llama-3.2-vision-90b are refused before anything is
 built: the batcher prefills tokens only, and those families read stub
 frame or patch embeddings (``audio_embeds``, ``image_embeds``) in every
@@ -27,7 +29,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..configs import ARCH_NAMES, get_config, get_smoke
+from ..configs import ALL_ARCH_NAMES, get_config, get_smoke
 from ..configs.base import ModelConfig
 from ..models import build_model
 from ..models.transformer import STUB_INPUTS, RunConfig
@@ -89,7 +91,7 @@ def run(arch: str, smoke: bool, n_requests: int, max_new: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_NAMES)
+    ap.add_argument("--arch", default="smollm-135m", choices=ALL_ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=12)

@@ -117,8 +117,10 @@ def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
              layout=None):
     """q (B,S,H,hd) from x and k, v (B,Sk,KH,hd) from ``kv_x`` (x when
     None), qk-normed where the layer has the scales, and rotated when
-    ``rope`` and the model is not attention-free. On a mesh, H and KH are
-    the rank's heads."""
+    ``rope`` and the model is neither attention-free nor ``nope``. Where
+    the config sets ``attention_multiplier``, q is scaled so that the
+    scores' ``1/sqrt(hd)`` becomes it. On a mesh, H and KH are the rank's
+    heads."""
     b, s, _ = x.shape
     wq, wk, wv = p.wq, p.wk, p.wv
     q_norm, k_norm = getattr(p, "q_norm", None), getattr(p, "k_norm", None)
@@ -144,9 +146,13 @@ def _project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm and q_norm is not None:
         q = head_rms_norm(q, q_norm, cfg.norm_eps)
         k = head_rms_norm(k, k_norm, cfg.norm_eps)
-    if rope and not cfg.attention_free:
+    if rope and not cfg.attention_free and not cfg.nope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attention_multiplier:
+        # Every impl scales scores by 1/sqrt(hd) (B4 fixes it): the query
+        # carries the rest of the configured scale.
+        q = q * (cfg.attention_multiplier * hd ** 0.5)
     return q, k, v
 
 

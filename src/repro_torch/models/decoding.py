@@ -7,6 +7,10 @@ stacked as the layers that read them:
   vlm       — self k/v (G, k−1, B, S, KH, hd), cross xk/xv (G, B, Timg, KH, hd)
   hybrid    — Mamba conv (G, k, B, K−1, d_in), ssm (G, k, B, H, N, P) and
               the shared attention's ak/av (G, B, S, KH, hd)
+  hybrid_moe — two kinds side by side, by ``layer_types``: each Mamba2
+              layer's conv (Lm, B, K−1, C) (C the conv's width,
+              ``ssm.conv_width``) and ssm (Lm, B, H, N, P), each attention
+              layer's k/v (La, B, S, KH, hd), in layer order
   ssm       — token-shift carries tm_prev/cm_prev (L, B, 1, d), wkv
               state (L, B, H, N, N)
   encdec    — decoder self k/v (L, B, S, KH, hd), cross xk/xv
@@ -58,7 +62,7 @@ from .mlp import mlp
 from .sharding import ShardingPlan, entry_axes
 from .transformer import (RunConfig, Transformer, _rwkv_block,
                           check_stub_inputs, embed_tokens, encode, ffn,
-                          lm_head, rank_rows)
+                          lm_head, rank_rows, residual)
 
 
 def kv_spec(plan: ShardingPlan, ndim: int) -> tuple:
@@ -90,6 +94,10 @@ def cache_specs(cfg: ModelConfig, plan: Optional[ShardingPlan] = None
         return {"conv": plan.P(None, None, "batch", None, "ff"),
                 "ssm": plan.P(None, None, "batch", None, None, None),
                 "ak": kv_spec(plan, 5), "av": kv_spec(plan, 5)}
+    if cfg.family == "hybrid_moe":
+        return {"conv": plan.P(None, "batch", None, "ff"),
+                "ssm": plan.P(None, "batch", None, None, None),
+                "k": kv_spec(plan, 5), "v": kv_spec(plan, 5)}
     if cfg.family == "ssm":
         carry = plan.P(None, "batch", None, None)
         return {"tm_prev": carry, "cm_prev": carry,
@@ -120,6 +128,15 @@ def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int
         return {"conv": ((g, k, batch, ssm_mod.CONV_K - 1, d_in), False),
                 "ssm": ((g, k, batch, h, n, cfg.ssm_head_dim), True),
                 "ak": (shp, False), "av": (shp, False)}
+    if cfg.family == "hybrid_moe":
+        d_in, h, n = ssm_mod.ssm_dims(cfg)
+        lm = cfg.layer_types.count("mamba")
+        la = cfg.num_layers - lm
+        return {"conv": ((lm, batch, ssm_mod.CONV_K - 1,
+                          ssm_mod.conv_width(cfg)), False),
+                "ssm": ((lm, batch, h, n, cfg.ssm_head_dim), True),
+                "k": ((la, batch, seq_len, kh, hd), False),
+                "v": ((la, batch, seq_len, kh, hd), False)}
     if cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
         lyr = cfg.num_layers
@@ -159,10 +176,13 @@ def seq_axes(layout) -> tuple:
 
 def _logits(params: Transformer, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """f32 logits (B, Vpad) of the last position of x (B, S, D). On a
-    mesh the head is the rank's vocabulary columns, and the logits are
-    gathered over the vocabulary's and the batch's axes."""
+    """f32 logits (B, Vpad) of the last position of x (B, S, D), divided
+    by the config's ``logits_scaling`` where it is not 1. On a mesh the
+    head is the rank's vocabulary columns, and the logits are gathered
+    over the vocabulary's and the batch's axes."""
     last = rms_norm(x[:, -1], params.ln_f, cfg.norm_eps)
+    if cfg.logits_scaling != 1.0:
+        last = last / cfg.logits_scaling
     layout = params.layout
     if layout is None:
         return torch.matmul(last.float(), lm_head(params, cfg).float())
@@ -277,6 +297,30 @@ def _prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                 c["ssm"][g, j] = mc.ssm
             x = self_attn(shared, x, c["ak"][g], c["av"][g])
             x = swiglu(shared, x)
+    elif cfg.family == "hybrid_moe":
+        n_mamba = n_attn = 0
+        for p in params.blocks:
+            if hasattr(p, "mamba"):
+                with spans.span("mamba"):
+                    o, mc = ssm_mod.mamba_block(
+                        p.mamba, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
+                        chunk=rc.ssd_chunk)
+                    x = residual(cfg, x, o)
+                    c["conv"][n_mamba] = mc.conv.to(cache_dtype)
+                    c["ssm"][n_mamba] = mc.ssm
+                n_mamba += 1
+            else:
+                with spans.span("attn"):
+                    out = attention(p.attn, cfg,
+                                    rms_norm(x, p.ln1, cfg.norm_eps),
+                                    positions, impl="pallas", return_kv=True)
+                    c["k"][n_attn, :, :s] = out.k.to(cache_dtype)
+                    c["v"][n_attn, :, :s] = out.v.to(cache_dtype)
+                    x = residual(cfg, x, out.out)
+                n_attn += 1
+            with spans.span("ffn"):
+                x = residual(cfg, x, ffn(p, cfg, rc,
+                                         rms_norm(x, p.ln2, cfg.norm_eps)))
     elif cfg.family == "vlm":
         img = image_embeds.to(x.dtype)
         for g, (group, pc) in enumerate(zip(params.self_groups,
@@ -359,6 +403,26 @@ def decode_step(params: Transformer, cfg: ModelConfig, token: torch.Tensor,
                 c["ssm"][g, j] = mc.ssm
             x = self_attn(shared, x, c["ak"][g], c["av"][g])
             x = _swiglu(shared, cfg, x, layout)
+    elif cfg.family == "hybrid_moe":
+        n_mamba = n_attn = 0
+        for p in params.blocks:
+            z = rms_norm(x, p.ln1, cfg.norm_eps)
+            if hasattr(p, "mamba"):
+                conv = c["conv"][n_mamba]
+                o, mc = ssm_mod.mamba_step(
+                    p.mamba, cfg, z,
+                    ssm_mod.MambaCache(conv=conv.to(z.dtype),
+                                       ssm=c["ssm"][n_mamba]))
+                conv.copy_(mc.conv.to(conv.dtype))
+                c["ssm"][n_mamba] = mc.ssm
+                n_mamba += 1
+            else:
+                o = decode_attention(p.attn, cfg, z, pos, c["k"][n_attn],
+                                     c["v"][n_attn]).out
+                n_attn += 1
+            x = residual(cfg, x, o)
+            x = residual(cfg, x, ffn(p, cfg, rc,
+                                     rms_norm(x, p.ln2, cfg.norm_eps)))
     elif cfg.family == "vlm":
         for g, (group, pc) in enumerate(zip(params.self_groups,
                                             params.cross_layers)):

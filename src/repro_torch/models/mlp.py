@@ -68,11 +68,13 @@ MOE_IMPLS = ("sort", "einsum", "ep_local")
 
 
 class MLP(nn.Module):
-    """Weights of one SwiGLU block: wi, wg (d, ff) and wo (ff, d)."""
+    """Weights of one SwiGLU block: wi, wg (d, ff) and wo (ff, d); ff is
+    the config's ``d_ff`` unless ``d_ff`` is given (a shared expert)."""
 
-    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+    def __init__(self, cfg: ModelConfig, generator, dtype, device,
+                 d_ff: int = 0):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.wi = weight(dense_init((d, f), generator, dtype, device),
                          ("embed", "ff"))
         self.wg = weight(dense_init((d, f), generator, dtype, device),
@@ -100,20 +102,22 @@ def mlp(p: MLP, x: torch.Tensor, layout=None) -> torch.Tensor:
 
 class MoE(nn.Module):
     """Weights of one MoE block: ``router`` (d, E), always f32, and the
-    experts' SwiGLU ``wi``, ``wg`` (E, d, ff) and ``wo`` (E, ff, d). Each is
-    drawn with fan-in ``shape[0]``, as the reference draws them."""
+    experts' SwiGLU ``wi``, ``wg`` (E_held, d, ff) and ``wo`` (E_held, ff,
+    d), where E_held is the config's ``local_experts`` (all E unless it
+    holds a block of them). Each is drawn with fan-in ``shape[0]``, as the
+    reference draws them."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
-        d, e = cfg.d_model, cfg.num_experts
+        d, e, held = cfg.d_model, cfg.num_experts, cfg.local_experts
         f = cfg.moe_d_ff or cfg.d_ff
         self.router = weight(dense_init((d, e), generator, torch.float32,
                                         device), ("embed", None))
-        self.wi = weight(dense_init((e, d, f), generator, dtype, device),
+        self.wi = weight(dense_init((held, d, f), generator, dtype, device),
                          ("experts", "expert_embed", "expert_ff"))
-        self.wg = weight(dense_init((e, d, f), generator, dtype, device),
+        self.wg = weight(dense_init((held, d, f), generator, dtype, device),
                          ("experts", "expert_embed", "expert_ff"))
-        self.wo = weight(dense_init((e, f, d), generator, dtype, device),
+        self.wo = weight(dense_init((held, f, d), generator, dtype, device),
                          ("experts", "expert_ff", "expert_embed"))
 
 
@@ -172,14 +176,15 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def moe_einsum(p, x: torch.Tensor, cfg: ModelConfig,
-               capacity_factor: float = 1.25, first: int = 0
-               ) -> torch.Tensor:
+               capacity_factor: float = 1.25, first: int = 0,
+               capacity_tokens: int = 0) -> torch.Tensor:
     """One-hot dispatch/combine MoE. x (T, d) → (T, d). Where ``p`` holds
     the experts ``first, first + 1, …`` only (a mesh's block), the result
-    is their part of the output."""
+    is their part of the output. ``capacity_tokens``, where given, is the
+    token count the capacity is computed for in place of T (a chunk's)."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
-    c = _capacity(t, cfg, capacity_factor)
+    c = _capacity(capacity_tokens or t, cfg, capacity_factor)
     gates, idx = _router(p, x, cfg)                       # (T, k)
 
     onehot = _one_hot(idx, e)                             # (T, k, E)
@@ -200,14 +205,16 @@ def moe_einsum(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def moe_sort(p, x: torch.Tensor, cfg: ModelConfig,
-             capacity_factor: float = 1.25, first: int = 0) -> torch.Tensor:
+             capacity_factor: float = 1.25, first: int = 0,
+             capacity_tokens: int = 0) -> torch.Tensor:
     """Gather/scatter dispatch MoE (no one-hot products). x (T, d). Where
     ``p`` holds the experts ``first, first + 1, …`` only (a mesh's block),
     the result is their part of the output: the routing, the capacity and
-    every assignment's rank are the whole layer's."""
+    every assignment's rank are the whole layer's. ``capacity_tokens`` as
+    in :func:`moe_einsum`."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
-    c = _capacity(t, cfg, capacity_factor)
+    c = _capacity(capacity_tokens or t, cfg, capacity_factor)
     with spans.span("moe.route"):
         gates, idx = _router(p, x, cfg)                   # (T, k)
         flat_e = idx.reshape(-1)                          # (T·k,)
@@ -263,9 +270,13 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
     """x (B, S, d) → (B, S, d); ``impl`` one of :data:`MOE_IMPLS`.
 
     The B·S tokens route together (capacity counts them all). More than
-    ``token_chunk`` tokens go through the layer a chunk at a time, the last
-    padded with zero rows and the padding cut from the result, so the
-    dispatch buffers scale with the chunk; under grad each chunk is
+    ``token_chunk`` tokens go through the layer a chunk at a time, so the
+    dispatch buffers scale with the chunk. Every chunk's capacity is a
+    whole chunk's: the reference pads the last one with zero rows, which
+    queue behind its every real token and so displace none, and the port
+    routes only the real rows at that capacity, the same result without
+    the padding's work (its assignments, dropped past capacity, all land
+    on one slot). Under grad each chunk is
     checkpointed (recomputed in the backward), as the reference wraps its
     chunk scan in ``jax.checkpoint``.
 
@@ -273,6 +284,14 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
     ``ep_local`` runs :func:`moe_ep_local` where the plan gives the
     experts a mesh axis and ``mesh`` is set, else ``sort``; ``sort`` and
     ``einsum`` run as the module docstring says.
+
+    Without a mesh, a model that holds a block of its experts (the
+    config's ``experts_held`` from ``experts_first``: one device's share
+    of an expert-parallel deployment) routes over all ``num_experts``,
+    with the whole layer's capacity and ranks, and returns its own
+    experts' part of the output: the rank's half of ``sort`` or
+    ``einsum`` on a mesh, before the all-reduce, which one device needs
+    not.
     """
     if impl not in MOE_IMPLS:
         raise ValueError(f"moe impl {impl!r} is not one of {MOE_IMPLS}")
@@ -289,8 +308,8 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "sort",
         return _moe_on_mesh(p, xt, cfg, impl, capacity_factor, token_chunk,
                             layout).reshape(b, s, d).to(x.dtype)
     fn = moe_einsum if impl == "einsum" else moe_sort
-    return _chunked(fn, p, xt, cfg, capacity_factor, token_chunk, 0
-                    ).reshape(b, s, d).to(x.dtype)
+    return _chunked(fn, p, xt, cfg, capacity_factor, token_chunk,
+                    cfg.experts_first).reshape(b, s, d).to(x.dtype)
 
 
 def _chunked(fn, p, xt: torch.Tensor, cfg: ModelConfig,
@@ -301,17 +320,14 @@ def _chunked(fn, p, xt: torch.Tensor, cfg: ModelConfig,
     t = xt.shape[0]
     if t <= token_chunk or xt.device.type == "meta":
         return fn(p, xt, cfg, capacity_factor, first)
-    pad = (-t) % token_chunk
-    if pad:
-        xt = torch.nn.functional.pad(xt, (0, 0, 0, pad))
     ys = []
     for xi in xt.split(token_chunk):
         if torch.is_grad_enabled():
             ys.append(checkpoint(fn, p, xi, cfg, capacity_factor, first,
-                                 use_reentrant=False))
+                                 token_chunk, use_reentrant=False))
         else:
-            ys.append(fn(p, xi, cfg, capacity_factor, first))
-    return torch.cat(ys)[:t]
+            ys.append(fn(p, xi, cfg, capacity_factor, first, token_chunk))
+    return torch.cat(ys)
 
 
 def _moe_on_mesh(p: MoE, xt: torch.Tensor, cfg: ModelConfig, impl: str,

@@ -227,7 +227,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     ``moe_impl='ep_local'`` reads, must then be None or this mesh. Every
     family shards; the RWKV and Mamba2 mixers need their heads to divide
     over the plan's ``ff`` axes (``ValueError`` on the first call where
-    they do not).
+    they do not). The hybrid_moe family runs on one device only, and
+    holds the block of experts its config names.
     """
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
@@ -239,6 +240,9 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
                          "mesh")
     if not active:
         return Model(cfg, generator, dtype, dev, rc)
+    if cfg.family == "hybrid_moe":
+        raise NotImplementedError("the hybrid_moe family is not sharded "
+                                  "over a mesh yet (ROADMAP E)")
     if rc is not None and rc.mesh is not None and rc.mesh is not mesh:
         raise ValueError("RunConfig.mesh and build_model's mesh differ")
     layout = Layout(plan, mesh)

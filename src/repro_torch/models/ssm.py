@@ -13,9 +13,15 @@ may be +inf above the diagonal, where a multiplied mask would give NaN,
 and a mask applied after ``exp`` a NaN gradient); across chunks a loop
 carries the (H, N, P) state.
 As in the reference, the causal depthwise conv is applied to the x stream
-only and B/C are shared across heads (one group, zamba2-2.7B's
-configuration). The reference computes all of it with XLA ops outside any
-Pallas kernel, so the port computes it in plain torch.
+only, with no bias, and B/C are shared across heads (one group, zamba2-2.7B's
+configuration). The published Mamba2 convolves ``[x | B | C]`` with a bias
+and applies SiLU to all three: a config with ``ssm_conv_xbc``
+(granite-4.0-h-small) takes that form, its ``conv_w`` and ``conv_b`` and
+its conv state ``d_in + 2·N`` wide. The reference computes all of it with
+XLA ops outside any Pallas kernel, so the port computes it in plain torch.
+While spans are recorded (``repro_torch.spans``), the chunked scan of a
+full sequence is the span ``ssd`` and adds its tokens to the counter
+``ssd.tokens``.
 
 On a mesh (``layout``) the weights keep the reference's specs and
 storage: ``in_proj`` ``("embed", "ff")``, ``conv_w`` ``(None, "ff")``,
@@ -50,6 +56,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import spans
 from ..configs.base import ModelConfig
 from .common import (dense_init, head_block, linear, linear_rows,
                      replicated_part, rms_norm, rms_norm_split, weight)
@@ -64,10 +71,18 @@ def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return d_in, heads, cfg.ssm_state
 
 
+def conv_width(cfg: ModelConfig) -> int:
+    """The channels the causal conv (and its decode state) holds: d_in, or
+    ``d_in + 2·N`` where it convolves ``[x | B | C]``."""
+    d_in, _, n = ssm_dims(cfg)
+    return d_in + 2 * n if cfg.ssm_conv_xbc else d_in
+
+
 class Mamba(nn.Module):
     """Weights of one Mamba2 block: ``in_proj`` (d, 2·d_in + 2·N + H),
-    ``conv_w`` (CONV_K, d_in) drawn at fan-in CONV_K, ``A_log``, ``D``,
-    ``dt_bias`` (H,) f32 whatever the dtype, ``norm`` (d_in,) and
+    ``conv_w`` (CONV_K, :func:`conv_width`) drawn at fan-in CONV_K (and
+    its bias ``conv_b`` where the conv takes ``[x | B | C]``), ``A_log``,
+    ``D``, ``dt_bias`` (H,) f32 whatever the dtype, ``norm`` (d_in,) and
     ``out_proj`` (d_in, d)."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
@@ -77,9 +92,13 @@ class Mamba(nn.Module):
         f32 = torch.float32
         self.in_proj = weight(dense_init((d, 2 * d_in + 2 * n + h), generator,
                                          dtype, device), ("embed", "ff"))
-        self.conv_w = weight(dense_init((CONV_K, d_in), generator, dtype,
-                                        device, in_axis_size=CONV_K),
+        self.conv_w = weight(dense_init((CONV_K, conv_width(cfg)), generator,
+                                        dtype, device, in_axis_size=CONV_K),
                              (None, "ff"))
+        if cfg.ssm_conv_xbc:
+            self.conv_b = weight(dense_init((conv_width(cfg),), generator,
+                                            dtype, device,
+                                            in_axis_size=CONV_K), ("ff",))
         self.A_log = weight(torch.zeros(h, dtype=f32, device=device), (None,))
         self.D = weight(torch.ones(h, dtype=f32, device=device), (None,))
         self.dt_bias = weight(torch.zeros(h, dtype=f32, device=device),
@@ -112,6 +131,22 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor,
     out = sum(xp[:, i:i + t, :] * w[i][None, None, :] for i in range(CONV_K))
     new_state = xp[:, t:, :] if t >= CONV_K - 1 else xp[:, -(CONV_K - 1):, :]
     return out, new_state
+
+
+def _conv_silu(p: Mamba, cfg: ModelConfig, xs, bv, cv,
+               state: Optional[torch.Tensor]):
+    """(x, B, C, new conv state) after the causal conv and SiLU: of x
+    alone (zamba2's form), or of ``[x | B | C]`` with ``conv_b`` where
+    the config has ``ssm_conv_xbc`` (the published Mamba2)."""
+    if not cfg.ssm_conv_xbc:
+        xs, new_state = _causal_conv(xs, p.conv_w, state)
+        return torch.nn.functional.silu(xs), bv, cv, new_state
+    d_in, n = xs.shape[-1], bv.shape[-1]
+    xbc, new_state = _causal_conv(torch.cat([xs, bv, cv], dim=-1), p.conv_w,
+                                  state)
+    xbc = torch.nn.functional.silu(xbc + p.conv_b)
+    return (xbc[..., :d_in], xbc[..., d_in:d_in + n], xbc[..., d_in + n:],
+            new_state)
 
 
 def ssd_chunked(x, a_log, bv, cv, chunk: int = 64, init_state=None):
@@ -182,7 +217,7 @@ def init_mamba_cache(cfg: ModelConfig, batch: int,
                      device=None) -> MambaCache:
     d_in, h, n = ssm_dims(cfg)
     return MambaCache(
-        conv=torch.zeros((batch, CONV_K - 1, d_in), dtype=dtype,
+        conv=torch.zeros((batch, CONV_K - 1, conv_width(cfg)), dtype=dtype,
                          device=device),
         ssm=torch.zeros((batch, h, n, cfg.ssm_head_dim), dtype=torch.float32,
                         device=device))
@@ -199,6 +234,9 @@ class _Split(NamedTuple):
 def _split(cfg: ModelConfig, layout) -> Optional[_Split]:
     if layout is None:
         return None
+    if cfg.ssm_conv_xbc:
+        raise NotImplementedError("the [x | B | C] conv is not split over "
+                                  "a mesh")
     axes = layout.axes("ff")
     first, count = head_block(layout, axes, ssm_dims(cfg)[1], "Mamba2")
     return _Split(axes, first, count)
@@ -268,17 +306,18 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     hp = cfg.ssm_head_dim
     (z, xs, bv, cv, dt), a_log_w, d_w, dt_bias = _mixer_inputs(
         p, cfg, x, layout, sp)
-    xs, new_conv = _causal_conv(xs, p.conv_w,
-                                cache.conv if cache is not None else None)
-    xs = torch.nn.functional.silu(xs)
+    xs, bv, cv, new_conv = _conv_silu(
+        p, cfg, xs, bv, cv, cache.conv if cache is not None else None)
     dt = torch.nn.functional.softplus(dt.float() + dt_bias)
     a_log = -torch.exp(a_log_w) * dt                 # (B,T,H) ≤ 0
     h = dt.shape[-1]
     xh = xs.reshape(b, t, h, hp)
-    y, s_final = ssd_chunked(xh.float() * dt[..., None], a_log, bv, cv,
-                             chunk=chunk,
-                             init_state=_heads_of(cache.ssm, sp)
-                             if cache is not None else None)
+    with spans.span("ssd"):
+        spans.count("ssd.tokens", b * t)
+        y, s_final = ssd_chunked(xh.float() * dt[..., None], a_log, bv, cv,
+                                 chunk=chunk,
+                                 init_state=_heads_of(cache.ssm, sp)
+                                 if cache is not None else None)
     y = y + d_w[None, None, :, None] * xh.float()
     out = _gated_out(p, cfg, y.reshape(b, t, h * hp), z, x.dtype, layout, sp)
     return out, MambaCache(conv=new_conv,
@@ -293,8 +332,7 @@ def mamba_step(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     hp = cfg.ssm_head_dim
     (z, xs, bv, cv, dt), a_log_w, d_w, dt_bias = _mixer_inputs(
         p, cfg, x, layout, sp)
-    xs, new_conv = _causal_conv(xs, p.conv_w, cache.conv)
-    xs = torch.nn.functional.silu(xs)
+    xs, bv, cv, new_conv = _conv_silu(p, cfg, xs, bv, cv, cache.conv)
     dt = torch.nn.functional.softplus(dt.float() + dt_bias)[:, 0]
     a = torch.exp(-torch.exp(a_log_w) * dt)          # (B,H)
     h = dt.shape[-1]
@@ -309,4 +347,4 @@ def mamba_step(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
 
 __all__ = ["Mamba", "mamba_block", "mamba_step", "MambaCache",
            "init_mamba_cache", "ssd_chunked", "ssd_step", "ssm_dims",
-           "CONV_K"]
+           "conv_width", "CONV_K"]

@@ -13,6 +13,10 @@ loop, which eager PyTorch runs without compiling. The families:
   hybrid      — ``mamba_groups``: L/k groups of k :class:`MambaLayer` s,
                 each group followed by the one ``shared_attn``
                 :class:`Block` (its weights applied L/k times)
+  hybrid_moe  — one :class:`HybridBlock` a layer: a Mamba2 mixer or
+                attention by ``layer_types``, then a mixture of experts
+                beside a shared SwiGLU; each sublayer's output enters the
+                residual times ``residual_multiplier``
   ssm         — one :class:`RWKVBlock` a layer (time mix, channel mix)
   encdec      — ``encoder`` (non-causal :class:`Block` s over the stub
                 frame embeddings) and ``enc_ln_f``, then decoder
@@ -50,6 +54,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..configs.base import ModelConfig, check_family
 from ..kernels.ref import NEG_INF
 from . import rwkv as rwkv_mod
@@ -76,7 +81,9 @@ class RunConfig:
     # Fields only some families read, by family; every family reads
     # attn_impl, remat, loss_chunk and mesh (each runs on one).
     FAMILY_FIELDS = {"moe": ("moe_impl", "moe_capacity", "moe_token_chunk"),
-                     "ssm": ("rwkv_impl",), "hybrid": ("ssd_chunk",)}
+                     "ssm": ("rwkv_impl",), "hybrid": ("ssd_chunk",),
+                     "hybrid_moe": ("moe_impl", "moe_capacity",
+                                    "moe_token_chunk", "ssd_chunk")}
     OTHER_FAMILIES = ("moe_impl", "moe_capacity", "moe_token_chunk",
                       "rwkv_impl", "ssd_chunk")
 
@@ -154,6 +161,26 @@ class MambaLayer(nn.Module):
         self.mamba = ssm_mod.Mamba(cfg, generator, dtype, device)
 
 
+class HybridBlock(nn.Module):
+    """A hybrid_moe layer: ``ln1``, its mixer (``mamba``, a Mamba2 block,
+    or ``attn``, by the layer's type), ``ln2``, the experts ``moe`` and
+    the ``shared`` expert (a SwiGLU of ``shared_expert_d_ff``)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, generator, dtype,
+                 device):
+        super().__init__()
+        self.ln1 = _norm(cfg, dtype, device)
+        if kind == "mamba":
+            self.mamba = ssm_mod.Mamba(cfg, generator, dtype, device)
+        else:
+            self.attn = Attention(cfg, generator, dtype, device)
+        self.ln2 = _norm(cfg, dtype, device)
+        self.moe = MoE(cfg, generator, dtype, device)
+        if cfg.shared_expert_d_ff:
+            self.shared = MLP(cfg, generator, dtype, device,
+                              d_ff=cfg.shared_expert_d_ff)
+
+
 class RWKVBlock(nn.Module):
     """An RWKV6 block: ln1, time mix ``tm``, ln2, channel mix ``cm``."""
 
@@ -211,6 +238,10 @@ class Transformer(nn.Module):
             self.shared_attn = Block(cfg, generator, dtype, device)
         elif cfg.family == "ssm":
             self.blocks = _stack(cfg.num_layers, make(RWKVBlock))
+        elif cfg.family == "hybrid_moe":
+            self.blocks = nn.ModuleList(
+                HybridBlock(cfg, kind, generator, dtype, device)
+                for kind in cfg.layer_types)
         else:                                           # encdec
             self.encoder = _stack(cfg.encoder_layers, make(Block))
             self.enc_ln_f = _norm(cfg, dtype, device)
@@ -244,25 +275,39 @@ def check_stub_inputs(cfg: ModelConfig, audio_embeds: Optional[torch.Tensor],
 def ffn(p: Block, cfg: ModelConfig, rc: RunConfig,
         z: torch.Tensor, layout=None) -> torch.Tensor:
     """The block's feed-forward on the normed z (B, S, D): the experts
-    with ``rc``'s MoE fields where the config has them, else the SwiGLU;
-    on ``layout``'s mesh where given."""
+    with ``rc``'s MoE fields where the config has them, plus the shared
+    expert where the block has one (the span ``moe.shared``), else the
+    SwiGLU; on ``layout``'s mesh where given."""
     if cfg.num_experts:
-        return moe(p.moe, z, cfg, impl=rc.moe_impl,
-                   capacity_factor=rc.moe_capacity,
-                   token_chunk=rc.moe_token_chunk, layout=layout,
-                   mesh=rc.mesh)
+        y = moe(p.moe, z, cfg, impl=rc.moe_impl,
+                capacity_factor=rc.moe_capacity,
+                token_chunk=rc.moe_token_chunk, layout=layout, mesh=rc.mesh)
+        if hasattr(p, "shared"):
+            with spans.span("moe.shared"):
+                y = y + mlp(p.shared, z, layout)
+        return y
     return mlp(p.mlp, z, layout)
+
+
+def residual(cfg: ModelConfig, x: torch.Tensor,
+             out: torch.Tensor) -> torch.Tensor:
+    """x plus a hybrid_moe sublayer's output times
+    ``residual_multiplier``."""
+    return x + out * cfg.residual_multiplier
 
 
 def embed_tokens(params: "Transformer", tokens: torch.Tensor
                  ) -> torch.Tensor:
-    """The embedding rows of ``tokens``. On a mesh the rank holds a
+    """The embedding rows of ``tokens``, times the config's
+    ``embedding_multiplier`` where it is not 1. On a mesh the rank holds a
     vocabulary range: it looks up the tokens inside it, puts exact zeros
     elsewhere and all-reduces over the vocabulary's axes, which adds one
     row to zeros and so gives the unsharded rows bit for bit."""
     layout = params.layout
+    mult = params.cfg.embedding_multiplier
     if layout is None:
-        return params.embed[tokens.long()]
+        rows = params.embed[tokens.long()]
+        return rows if mult == 1.0 else rows * mult
     emb = layout.whole(params.embed, 1)                  # (V_loc, d)
     vocab = layout.axes("vocab")
     n = emb.shape[0]
@@ -270,7 +315,8 @@ def embed_tokens(params: "Transformer", tokens: torch.Tensor
     inside = (local >= 0) & (local < n)
     rows = torch.where(inside[..., None], emb[local.clamp(0, n - 1)],
                        torch.zeros((), dtype=emb.dtype, device=emb.device))
-    return reduce_from(rows, layout, vocab) if vocab else rows
+    rows = reduce_from(rows, layout, vocab) if vocab else rows
+    return rows if mult == 1.0 else rows * mult
 
 
 def _dense_block(p: Block, cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
@@ -291,6 +337,20 @@ def _cross_block(p: CrossLayer, cfg: ModelConfig, rc: RunConfig,
                       layout=layout).out
     x = x + mlp(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), layout)
     return constrain(x, layout, "batch", None, None)
+
+
+def _hybrid_block(p: HybridBlock, cfg: ModelConfig, rc: RunConfig,
+                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """A hybrid_moe layer over the whole sequence (no cache)."""
+    z = rms_norm(x, p.ln1, cfg.norm_eps)
+    if hasattr(p, "mamba"):
+        o, _ = ssm_mod.mamba_block(p.mamba, cfg, z, chunk=rc.ssd_chunk,
+                                   keep_state=False)
+    else:
+        o = attention(p.attn, cfg, z, positions, impl=rc.attn_impl).out
+    x = residual(cfg, x, o)
+    return residual(cfg, x, ffn(p, cfg, rc, rms_norm(x, p.ln2,
+                                                      cfg.norm_eps)))
 
 
 def _rwkv_block(p: RWKVBlock, cfg: ModelConfig, rc: RunConfig,
@@ -417,6 +477,10 @@ def forward(params: Transformer, cfg: ModelConfig, rc: RunConfig,
                                                       layout), x)
             x = run(lambda x_: _dense_block(params.shared_attn, cfg, rc, x_,
                                             positions, layout=layout), x)
+    elif cfg.family == "hybrid_moe":
+        for p in params.blocks:
+            x = run(lambda x_, p_=p: _hybrid_block(p_, cfg, rc, x_,
+                                                   positions), x)
     elif cfg.family == "ssm":
         h, n = rwkv_mod.rwkv_dims(cfg)
         zero_prev = torch.zeros((b, 1, cfg.d_model), dtype=x.dtype,
@@ -553,6 +617,8 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
                      audio_embeds=batch.get("audio_embeds"),
                      image_embeds=batch.get("image_embeds"))
     labels = batch["labels"].long()
+    if cfg.logits_scaling != 1.0:
+        hidden = hidden / cfg.logits_scaling
     if layout is None:
         head = lm_head(params, cfg)
     else:
@@ -564,6 +630,7 @@ def loss_fn(params: Transformer, cfg: ModelConfig, rc: RunConfig,
 
 
 __all__ = ["Block", "CrossLayer", "DecoderBlock", "MambaLayer", "RWKVBlock",
+           "HybridBlock", "residual",
            "Transformer", "RunConfig", "STUB_INPUTS", "check_stub_inputs",
            "embed_tokens", "ffn", "encode", "rank_rows", "forward",
            "lm_head", "chunked_cross_entropy", "loss_fn"]

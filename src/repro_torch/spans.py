@@ -41,6 +41,12 @@ The spans, by name:
 * ``attn``: each self- or cross-attention of a prefill (norm,
   projections, rope, B4, the cache writes, the output projection);
 * ``ffn``: each layer's feed-forward in a prefill (SwiGLU or MoE);
+* ``mamba``: each Mamba2 mixer of a hybrid_moe prefill (norm,
+  in-projection, conv, chunked scan, gated norm, out-projection,
+  residual), and ``ssd``: the chunked scan inside any Mamba2 block run
+  over a whole sequence;
+* ``moe.shared``: the shared expert beside the routed ones, inside
+  ``ffn``;
 * ``logits``: the last position's norm and the head;
 * ``moe.route`` (router and the sort by expert), ``moe.dispatch``
   (counts, ranks, capacity and the scatter into expert batches),
@@ -59,7 +65,8 @@ reads back its input's least and greatest values), ``moe.slots``
 assignments), ``moe.assignments`` (tokens × k), ``moe.dropped``
 (assignments past their expert's capacity), ``rope.table_builds``
 (rope's frequency table built on a device: one per new head dim, theta
-and device, none once each is cached), ``spans.dropped`` (spans not kept
+and device, none once each is cached), ``ssd.tokens`` (tokens times
+layers the chunked scan ran over), ``spans.dropped`` (spans not kept
 past :data:`CAP`). :func:`count` takes a Python int or a 0-d
 tensor; tensors are summed on their device and read when
 :func:`counters` is called.

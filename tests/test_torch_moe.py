@@ -154,7 +154,8 @@ def test_zero_router_ties_pick_the_lowest_experts(arch, monkeypatch):
 @pytest.mark.parametrize("impl", ["sort", "einsum", "ep_local"])
 def test_token_chunks_match_reference(impl):
     """``moe`` over (B, S, d) with a token chunk smaller than B·S that
-    does not divide it: each chunk routes alone, the last one padded."""
+    does not divide it: each chunk routes alone, the last one at a whole
+    chunk's capacity, as the reference's padded one."""
     ref_cfg, params, cfg, layer = _pair("olmoe-1b-7b", seed=5)
     x = np.random.default_rng(4).standard_normal(
         (3, 50, cfg.d_model)).astype(np.float32)
@@ -168,6 +169,39 @@ def test_token_chunks_match_reference(impl):
     whole = mlp.moe(layer, torch.from_numpy(x), cfg, impl=impl,
                     capacity_factor=0.25, token_chunk=1 << 16)
     assert not torch.allclose(whole, got, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("impl", ["sort", "einsum"])
+def test_last_chunk_routes_only_its_real_rows(impl):
+    """A short last chunk routes its own rows at a whole chunk's
+    capacity: equal to the chunk filled up with zero rows and cut (the
+    reference's form), while the assignments counted are the real
+    tokens' alone."""
+    from repro_torch import spans
+    _, _, cfg, layer = _pair("olmoe-1b-7b", seed=9)
+    # 600 rows in the last chunk drop at its own capacity (64 slots) and
+    # at a whole chunk's (96), but not the same assignments.
+    t, chunk = 1624, 1024
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (t, cfg.d_model)).astype(np.float32))
+    fn = getattr(mlp, f"moe_{impl}")
+    padded = torch.cat([x, torch.zeros((2 * chunk - t, cfg.d_model))])
+    want = torch.cat([fn(layer, xi, cfg, 0.25)
+                      for xi in padded.split(chunk)])[:t]
+    assert not torch.equal(fn(layer, x[chunk:], cfg, 0.25), want[chunk:])
+    for grad in (False, True):          # the plain and checkpointed loops
+        spans.clear()
+        spans.enable()
+        try:
+            with torch.set_grad_enabled(grad):
+                got = mlp._chunked(fn, layer, x, cfg, 0.25, chunk, 0)
+        finally:
+            spans.disable()
+        assert torch.equal(got, want)
+        if impl == "sort":
+            assert (spans.counters()["moe.assignments"]
+                    == t * cfg.experts_per_tok)
+    spans.clear()
 
 
 def test_token_chunks_are_checkpointed_under_grad():
